@@ -1,0 +1,453 @@
+"""CKKS primitive HE ops (paper §II-B): HAdd, HMult, PMult, HRot, KS, RS.
+
+Key-switching follows the hybrid (Han-Ki) construction used by ARK and
+CiFHER: digit decomposition → ModUp (iNTT · BConv · NTT) → evk inner product →
+ModDown.  Hoisted rotations (one shared ModUp across a set of rotations)
+implement the decomposition reuse that the paper's minimum key-switching
+(§V-B) builds on.
+
+Engine selection, as the reference's ``core/ckks.py``:
+
+* ``"fused"`` (default) — rotations go through the fused AutoU∘KS kernel (the
+  Galois permutation applied to each hoisted digit inside the evk MAC, all
+  rotations of a set in one launch) and the multi-permutation kernel, and
+  HMult's tensor products through the EFU kernel (one stacked ``mul``, one
+  compound ``mac``).
+* ``"eager"`` — the per-rotation path (permute every digit, then the RnsPoly
+  inner product) and RnsPoly tensor products; bit-exact with the reference's
+  eager engine.
+
+Kernels run for CUDA tensors; on CPU tensors each wrapper runs its plain
+torch version, so both engines compute the same bytes on either device.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.automorphism import ops as auto_ops
+from repro_torch.kernels.eltwise import ops as elt_ops
+
+from . import bconv as bc
+from . import guards
+from . import poly as pl
+from . import trace
+from .keys import Ciphertext, EvalKey, KeySet
+from .params import CkksParams
+
+_ENGINES = ("fused", "eager")
+_engine = "fused"
+
+
+def get_engine() -> str:
+    return _engine
+
+
+def set_engine(name: str) -> None:
+    """Select the CKKS rotation/eltwise engine globally ("fused" | "eager")."""
+    global _engine
+    if name not in _ENGINES:
+        raise ValueError(f"unknown CKKS engine {name!r} — one of {_ENGINES}")
+    _engine = name
+
+
+class use_engine:
+    """Context manager pinning the CKKS engine (parity tests, benchmarks)."""
+
+    def __init__(self, name: str):
+        if name not in _ENGINES:
+            raise ValueError(f"unknown CKKS engine {name!r} — one of {_ENGINES}")
+        self.name = name
+
+    def __enter__(self):
+        self._saved = _engine
+        set_engine(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        set_engine(self._saved)
+        return False
+
+
+def _use_fused() -> bool:
+    return _engine == "fused"
+
+
+def _evk_at_level(evk: EvalKey, params: CkksParams,
+                  ell: int) -> list[tuple[pl.RnsPoly, pl.RnsPoly]]:
+    """Slice each digit key to the current basis Q_ℓ ∪ P (cached per level)."""
+    idx = tuple(range(ell)) + tuple(params.L + k for k in range(params.K))
+    basis = params.q[:ell] + params.p
+    return evk.at_level(idx, basis, len(params.digit_bases(ell)))
+
+
+# ----------------------------------------------------------------------------
+# Key-switching
+# ----------------------------------------------------------------------------
+
+def mod_up_all_digits(d: pl.RnsPoly, params: CkksParams) -> list[pl.RnsPoly]:
+    """Digit-decompose + ModUp: d ∈ R_{Q_ℓ} (NTT) → [R_{Q_ℓ∪P} (NTT)] per digit.
+
+    The digit's own limbs reuse the original NTT-domain data — only BConv
+    outputs pay forward transforms.
+    """
+    ell = d.ell
+    d_ntt = d.to_ntt()
+    d_coeff = d.to_coeff()
+    full_q = params.q[:ell]
+    exts = []
+    start = 0
+    for dj in params.digit_bases(ell):
+        sl = slice(start, start + len(dj))
+        digit = pl.RnsPoly(d_coeff.data[..., sl, :], dj, pl.COEFF)
+        digit_ntt = pl.RnsPoly(d_ntt.data[..., sl, :], dj, pl.NTT)
+        exts.append(bc.mod_up_digit(digit, full_q, params.p, digit_ntt))
+        start += len(dj)
+    return exts
+
+
+def ks_inner(exts: list[pl.RnsPoly], evk: EvalKey, params: CkksParams,
+             ell: int) -> tuple[pl.RnsPoly, pl.RnsPoly]:
+    """Σ_j ext_j ⊙ evk_j over Q_ℓ∪P, then ModDown by P.  Returns (ka, kb)."""
+    pairs = _evk_at_level(evk, params, ell)
+    trace.record("evk_load_bytes", 1,
+                 len(pairs) * (ell + params.K) * params.N * 4)
+    trace.record_he("KS")
+    acc_a = acc_b = None
+    for ext, (aj, bj) in zip(exts, pairs):
+        ta, tb = ext * aj, ext * bj
+        acc_a = ta if acc_a is None else acc_a + ta
+        acc_b = tb if acc_b is None else acc_b + tb
+    # both components stacked on a leading axis → ONE ModDown
+    acc = pl.RnsPoly(torch.stack([acc_a.data, acc_b.data]), acc_a.basis, pl.NTT)
+    k = bc.mod_down(acc, params.q[:ell], params.p)
+    return (pl.RnsPoly(k.data[0], k.basis, k.domain),
+            pl.RnsPoly(k.data[1], k.basis, k.domain))
+
+
+def key_switch(d: pl.RnsPoly, evk: EvalKey,
+               params: CkksParams) -> tuple[pl.RnsPoly, pl.RnsPoly]:
+    """KS(d, evk): (ka, kb) with kb − ka·s ≈ d·s′ (paper §II-B)."""
+    return ks_inner(mod_up_all_digits(d, params), evk, params, d.ell)
+
+
+# ----------------------------------------------------------------------------
+# Primitive HE ops
+# ----------------------------------------------------------------------------
+
+def hadd(c1: Ciphertext, c2: Ciphertext) -> Ciphertext:
+    guards.check_basis_match(c1.basis, c2.basis, "hadd")
+    guards.check_scale_match(c1.scale, c2.scale, "hadd")
+    guards.check_ciphertext(c1, "hadd")
+    guards.check_ciphertext(c2, "hadd")
+    assert abs(c1.scale - c2.scale) / c1.scale < 1e-3, \
+        f"scale mismatch {c1.scale} vs {c2.scale}"
+    return Ciphertext(c1.a + c2.a, c1.b + c2.b, c1.scale)
+
+
+def hsub(c1: Ciphertext, c2: Ciphertext) -> Ciphertext:
+    guards.check_basis_match(c1.basis, c2.basis, "hsub")
+    guards.check_ciphertext(c1, "hsub")
+    guards.check_ciphertext(c2, "hsub")
+    return Ciphertext(c1.a - c2.a, c1.b - c2.b, c1.scale)
+
+
+def pmult(ct: Ciphertext, pt: pl.RnsPoly, pt_scale: float) -> Ciphertext:
+    """ct ⊙ plaintext (NTT domain)."""
+    guards.check_basis_match(ct.basis, pt.basis, "pmult")
+    guards.check_ciphertext(ct, "pmult")
+    p = pt.to_ntt()
+    return Ciphertext(ct.a.to_ntt() * p, ct.b.to_ntt() * p, ct.scale * pt_scale)
+
+
+def padd(ct: Ciphertext, pt: pl.RnsPoly) -> Ciphertext:
+    """ct + plaintext already encoded at ct.scale."""
+    return Ciphertext(ct.a, ct.b.to_ntt() + pt.to_ntt(), ct.scale)
+
+
+def _tensor_products(a1: pl.RnsPoly, b1: pl.RnsPoly,
+                     a2: pl.RnsPoly, b2: pl.RnsPoly):
+    """HMult tensor product: d₀ = b₁b₂, d₁ = a₁b₂ + a₂b₁, d₂ = a₁a₂.
+
+    Fused engine: TWO EFU launches — a stacked "mul" computes (d₀, d₂) over
+    one (2, ℓ, N) operand, the compound "mac" computes d₁ in one pass.
+    Eager: RnsPoly ops.
+    """
+    if not _use_fused():
+        return b1 * b2, (a1 * b2) + (a2 * b1), a1 * a2
+    basis = a1.basis
+    trace.record("elt_mul", a1.ell, a1.N, 4)
+    prod = elt_ops.eltwise("mul", basis,
+                           torch.stack([b1.data, a1.data]),
+                           torch.stack([b2.data, a2.data]))
+    d1 = elt_ops.eltwise("mac", basis, a1.data, b2.data, a2.data, b1.data)
+    return (pl.RnsPoly(prod[0], basis, pl.NTT),
+            pl.RnsPoly(d1, basis, pl.NTT),
+            pl.RnsPoly(prod[1], basis, pl.NTT))
+
+
+def hmult(c1: Ciphertext, c2: Ciphertext, keys: KeySet) -> Ciphertext:
+    """HMult = (a₁b₂+a₂b₁, b₁b₂) + KS(a₁a₂, evk_×); rescale NOT included."""
+    guards.check_basis_match(c1.basis, c2.basis, "hmult")
+    guards.check_level(c1.basis, 2, "hmult")
+    guards.check_ciphertext(c1, "hmult")
+    guards.check_ciphertext(c2, "hmult")
+    trace.record_he("HMult")
+    a1, b1 = c1.a.to_ntt(), c1.b.to_ntt()
+    a2, b2 = c2.a.to_ntt(), c2.b.to_ntt()
+    d0, d1, d2 = _tensor_products(a1, b1, a2, b2)
+    ka, kb = key_switch(d2, keys.relin, keys.params)
+    return Ciphertext(d1 + ka, d0 + kb, c1.scale * c2.scale)
+
+
+def square(ct: Ciphertext, keys: KeySet) -> Ciphertext:
+    guards.check_level(ct.basis, 2, "square")
+    guards.check_ciphertext(ct, "square")
+    a, b = ct.a.to_ntt(), ct.b.to_ntt()
+    d0, d1, d2 = _tensor_products(a, b, a, b)
+    ka, kb = key_switch(d2, keys.relin, keys.params)
+    return Ciphertext(d1 + ka, d0 + kb, ct.scale * ct.scale)
+
+
+def hrot(ct: Ciphertext, r: int, keys: KeySet) -> Ciphertext:
+    """HRot = (0, φ_r(b)) + KS(φ_r(a), evk_r): rotates slots left by r."""
+    guards.check_ciphertext(ct, "hrot")
+    return _rot_by_gelt(ct, pl.galois_elt(r, ct.a.N), keys)
+
+
+def conjugate(ct: Ciphertext, keys: KeySet) -> Ciphertext:
+    guards.check_ciphertext(ct, "conjugate")
+    return _rot_by_gelt(ct, 2 * ct.a.N - 1, keys)
+
+
+def _rot_by_gelt(ct: Ciphertext, g: int, keys: KeySet) -> Ciphertext:
+    """(φ(a), φ(b)) is valid under φ(s); switch back to s.
+
+    With decrypt = b − a·s the switched term enters with a minus sign:
+    ct′ = (−ka, φ(b) − kb).  The fused path permutes the hoisted digits
+    *after* ModUp (inside the AutoU∘KS kernel); the eager path permutes ``a``
+    *before* ModUp.  Both are valid key-switches of the same rotation — they
+    differ only in which multiple of Q the approximate (HPS) BConv error term
+    carries.
+    """
+    if _use_fused():
+        return _rot_by_gelt_fused(ct, g, keys)
+    return _rot_by_gelt_eager(ct, g, keys)
+
+
+def _rot_by_gelt_eager(ct: Ciphertext, g: int, keys: KeySet) -> Ciphertext:
+    """Eager rotation: permute (a, b), then a full key-switch on φ(a)."""
+    a = ct.a.to_ntt().automorphism_by_gelt(g)
+    b = ct.b.to_ntt().automorphism_by_gelt(g)
+    ka, kb = key_switch(a, keys.galois_key(g), keys.params)
+    return Ciphertext(-ka, b - kb, ct.scale)
+
+
+def _rot_by_gelt_fused(ct: Ciphertext, g: int, keys: KeySet) -> Ciphertext:
+    """Fused rotation: ModUp of a (unpermuted), then the AutoU∘KS kernel
+    applies φ_g inside the evk MAC — no permuted digit ever materializes."""
+    a, b = ct.a.to_ntt(), ct.b.to_ntt()
+    exts = mod_up_all_digits(a, keys.params)
+    k = _fused_galois_ks(exts, (g,), keys, a.ell)
+    ka = pl.RnsPoly(k.data[0, 0], k.basis, k.domain)
+    kb = pl.RnsPoly(k.data[0, 1], k.basis, k.domain)
+    b_rot = _rotated_b(b, (g,))
+    diff = pl.RnsPoly(b_rot.data[0], b.basis, pl.NTT) - kb
+    return Ciphertext(-ka, diff, ct.scale)
+
+
+# -- hoisted rotations (decomposition reuse; basis of minimum-KS §V-B) --------
+
+def _fused_galois_ks(exts: list[pl.RnsPoly], gelts: tuple[int, ...],
+                     keys: KeySet, ell: int) -> pl.RnsPoly:
+    """Fused AutoU∘KS + one stacked ModDown for a whole rotation set.
+
+    ``exts``: the hoisted digits — each digit's data is (L, N) (one shared
+    ModUp, broadcast over the set) or (R, L, N) (one decomposition per
+    rotation).  Returns ONE RnsPoly with data (R, 2, ℓ, N): [r, 0] is ka,
+    [r, 1] is kb for rotation r.
+    """
+    params = keys.params
+    ext_basis = exts[0].basis
+    N = exts[0].N
+    J, L, R = len(exts), len(ext_basis), len(gelts)
+    stack = torch.stack([e.data if e.data.dim() == 3 else e.data[None]
+                         for e in exts])                    # (J, G, L, N)
+    idx = tuple(range(ell)) + tuple(params.L + k for k in range(params.K))
+    ndig = len(params.digit_bases(ell))
+    evk_a, evk_b = keys.galois_stacked(gelts, idx, ext_basis, ndig)
+    trace.record("auto", L, N, J * R)            # digit permutations
+    trace.record("elt_mul", L, N, 2 * J * R)     # evk MAC products
+    for _ in gelts:
+        trace.record("evk_load_bytes", 1, J * L * N * 4)
+        trace.record_he("KS")
+    acc = auto_ops.auto_ks(stack, evk_a, evk_b, N, gelts, ext_basis)
+    # ONE ModDown for the whole set: every (rotation, component) pair rides
+    # the leading axes through the iNTT/BConv/NTT/P⁻¹ chain.
+    return bc.mod_down(pl.RnsPoly(acc, ext_basis, pl.NTT),
+                       params.q[:ell], params.p)
+
+
+def _rotated_b(b: pl.RnsPoly, gelts: tuple[int, ...]) -> pl.RnsPoly:
+    """φ_g(b) for every g in one multi-perm kernel launch.
+
+    ``b.data``: (ℓ, N) shared across the set, or (R, ℓ, N) one per rotation.
+    Returns an (R, ℓ, N) RnsPoly.
+    """
+    trace.record("auto", b.ell, b.N, len(gelts))
+    data = b.data if b.data.dim() == 3 else b.data[None]
+    return pl.RnsPoly(auto_ops.apply_galois_many(data, b.N, gelts),
+                      b.basis, pl.NTT)
+
+
+def hrot_hoisted(ct: Ciphertext, rotations: list[int],
+                 keys: KeySet) -> list[Ciphertext]:
+    """Rotate one ciphertext by many amounts with a single ModUp.
+
+    φ_g commutes with ModUp, so the digit decomposition of ``a`` is computed
+    once and permuted per rotation.  The fused engine collapses the whole set
+    into ONE AutoU∘KS launch, ONE stacked ModDown and ONE multi-perm launch
+    for the b-halves; :func:`hrot_hoisted_eager` is the per-rotation path.
+    """
+    if _use_fused():
+        return hrot_hoisted_fused(ct, rotations, keys)
+    return hrot_hoisted_eager(ct, rotations, keys)
+
+
+def hrot_hoisted_eager(ct: Ciphertext, rotations: list[int],
+                       keys: KeySet) -> list[Ciphertext]:
+    """Hoisted rotations, one evk inner product + ModDown per rotation."""
+    N = ct.a.N
+    a, b = ct.a.to_ntt(), ct.b.to_ntt()
+    exts = mod_up_all_digits(a, keys.params)
+    out = []
+    for r in rotations:
+        if r % (N // 2) == 0:
+            out.append(Ciphertext(a, b, ct.scale))
+            continue
+        g = pl.galois_elt(r, N)
+        exts_g = [e.automorphism_by_gelt(g) for e in exts]
+        ka, kb = ks_inner(exts_g, keys.galois_key(g), keys.params, a.ell)
+        out.append(Ciphertext(-ka, b.automorphism_by_gelt(g) - kb, ct.scale))
+    return out
+
+
+def hrot_hoisted_fused(ct: Ciphertext, rotations: list[int],
+                       keys: KeySet) -> list[Ciphertext]:
+    """Hoisted rotations through the fused AutoU∘KS kernel (one launch for
+    the whole set) — bit-exact against :func:`hrot_hoisted_eager`."""
+    N = ct.a.N
+    a, b = ct.a.to_ntt(), ct.b.to_ntt()
+    out = [Ciphertext(a, b, ct.scale) for _ in rotations]
+    nontriv = [(i, pl.galois_elt(r, N)) for i, r in enumerate(rotations)
+               if r % (N // 2) != 0]
+    if not nontriv:
+        return out
+    exts = mod_up_all_digits(a, keys.params)
+    gelts = tuple(g for _, g in nontriv)
+    k = _fused_galois_ks(exts, gelts, keys, a.ell)          # (R, 2, ℓ, N)
+    b_rot = _rotated_b(b, gelts)                            # (R, ℓ, N)
+    _scatter_rotated(out, nontriv, k, b_rot, [ct.scale] * len(rotations))
+    return out
+
+
+def _scatter_rotated(out: list[Ciphertext], nontriv, k: pl.RnsPoly,
+                     b_rot: pl.RnsPoly, scales: list[float]) -> None:
+    """out[i] = (−ka_j, φ(b)_j − kb_j) for the j-th nontrivial rotation i."""
+    ka = pl.RnsPoly(k.data[:, 0], k.basis, k.domain)
+    kb = pl.RnsPoly(k.data[:, 1], k.basis, k.domain)
+    diff = b_rot - kb                                       # batched over R
+    neg = -ka
+    for j, (i, _) in enumerate(nontriv):
+        out[i] = Ciphertext(pl.RnsPoly(neg.data[j], neg.basis, neg.domain),
+                            pl.RnsPoly(diff.data[j], diff.basis, diff.domain),
+                            scales[i])
+
+
+def hrot_many(cts: list[Ciphertext], rotations: list[int],
+              keys: KeySet) -> list[Ciphertext]:
+    """Rotate DISTINCT ciphertexts by per-ciphertext amounts, batched.
+
+    One leading-dim-batched ModUp, ONE fused AutoU∘KS launch with
+    per-rotation perms and evks, ONE stacked ModDown, ONE multi-perm launch
+    for the b-halves.  All cts must sit at the same level.  The eager engine
+    rotates each ciphertext with :func:`hrot`.
+    """
+    assert len(cts) == len(rotations)
+    if not cts:
+        return []
+    if guards.full():
+        for i, c in enumerate(cts):
+            guards.check_ciphertext(c, f"hrot_many[{i}]")
+    N = cts[0].a.N
+    if not _use_fused():
+        return [Ciphertext(c.a, c.b, c.scale) if r % (N // 2) == 0
+                else hrot(c, r, keys) for c, r in zip(cts, rotations)]
+    out = [Ciphertext(c.a.to_ntt(), c.b.to_ntt(), c.scale) for c in cts]
+    nontriv = [(i, pl.galois_elt(r, N)) for i, r in enumerate(rotations)
+               if r % (N // 2) != 0]
+    if not nontriv:
+        return out
+    sel = [i for i, _ in nontriv]
+    gelts = tuple(g for _, g in nontriv)
+    ell = out[sel[0]].a.ell
+    assert all(out[i].a.ell == ell for i in sel), "hrot_many needs equal levels"
+    basis = out[sel[0]].basis
+    a_stack = pl.RnsPoly(torch.stack([out[i].a.data for i in sel]), basis, pl.NTT)
+    b_stack = pl.RnsPoly(torch.stack([out[i].b.data for i in sel]), basis, pl.NTT)
+    exts = mod_up_all_digits(a_stack, keys.params)          # each (R, L, N)
+    k = _fused_galois_ks(exts, gelts, keys, ell)            # (R, 2, ℓ, N)
+    b_rot = _rotated_b(b_stack, gelts)
+    _scatter_rotated(out, nontriv, k, b_rot, [c.scale for c in cts])
+    return out
+
+
+# ----------------------------------------------------------------------------
+# Rescaling (paper §II-B / §III-C double-prime variant)
+# ----------------------------------------------------------------------------
+
+def rescale(ct: Ciphertext, params: CkksParams, times: int | None = None) -> Ciphertext:
+    """Divide by the top ``times`` primes (paper default: 2 = double-prime RS)."""
+    times = params.rescale_primes if times is None else times
+    guards.check_level(ct.basis, times + 1, "rescale")
+    guards.check_ciphertext(ct, "rescale")
+    a, b, scale = ct.a, ct.b, ct.scale
+    for _ in range(times):
+        a, b, scale = _rescale_once(a, b, scale)
+    return Ciphertext(a, b, scale)
+
+
+@functools.lru_cache(maxsize=None)
+def _rescale_qinv(basis: tuple[int, ...]) -> np.ndarray:
+    """q_ℓ⁻¹ mod q_i for the drop of the top prime — one build per basis."""
+    ql = basis[-1]
+    return np.array([pow(ql % q, q - 2, q) for q in basis[:-1]],
+                    dtype=np.uint32)
+
+
+def _rescale_once(a: pl.RnsPoly, b: pl.RnsPoly, scale: float):
+    basis = a.basis
+    ql = basis[-1]
+    new_basis = basis[:-1]
+    # both ciphertext components ride one leading axis: the top-limb iNTT,
+    # the vectorized centered lift, the re-NTT and the q_ℓ⁻¹ scale each
+    # dispatch once for the pair.
+    xn = torch.stack([a.to_ntt().data, b.to_ntt().data])
+    last = pl.RnsPoly(xn[..., -1:, :], (ql,), pl.NTT).to_coeff()
+    lifted = bc.centered_lift_single(last.data[..., 0, :], ql, new_basis)
+    lifted_ntt = pl.RnsPoly(lifted, new_basis, pl.COEFF).to_ntt()
+    head = pl.RnsPoly(xn[..., :-1, :], new_basis, pl.NTT)
+    out = (head - lifted_ntt).mul_scalar(_rescale_qinv(basis))
+    return (pl.RnsPoly(out.data[0], new_basis, pl.NTT),
+            pl.RnsPoly(out.data[1], new_basis, pl.NTT), scale / ql)
+
+
+def level_drop(ct: Ciphertext, ell: int) -> Ciphertext:
+    """Drop to ℓ limbs without division (modulus switching to align levels)."""
+    basis = ct.basis[:ell]
+    return Ciphertext(
+        pl.RnsPoly(ct.a.data[..., :ell, :], basis, ct.a.domain),
+        pl.RnsPoly(ct.b.data[..., :ell, :], basis, ct.b.domain),
+        ct.scale)

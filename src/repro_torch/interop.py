@@ -1,0 +1,60 @@
+"""State carried across from numpy arrays: key sets and ciphertexts.
+
+Key material and ciphertexts travel between this package and other holders
+(the JAX reference package, files, another process) as plain numpy arrays of
+u32 residues, so both sides compute on the same bytes:
+
+* :func:`keyset_from_numpy` builds a :class:`~repro_torch.core.keys.KeySet`
+  from the ternary secret, and each evaluation key's PRNG seed and b-halves
+  (the a-halves are regenerated from the seed, PRNG evk §V-B);
+* :func:`ciphertext_from_numpy` / :func:`ciphertext_to_numpy` convert a
+  ciphertext from and to ``(a, b, scale, basis, domain)``.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .core import keys as K
+from .core import poly as pl
+from .core.params import CkksParams
+
+
+def evalkey_from_numpy(seed: int, b_halves, basis: tuple[int, ...],
+                       device="cuda") -> K.EvalKey:
+    """One evaluation key from its seed and its dnum (ℓ+K, N) u32 b-halves."""
+    b = [pl.RnsPoly(pl.to_tensor(np.asarray(x), device), tuple(basis), pl.NTT)
+         for x in b_halves]
+    return K.EvalKey(seed=int(seed), b=b, basis=tuple(basis))
+
+
+def keyset_from_numpy(params: CkksParams, s_small: np.ndarray,
+                      relin: tuple[int, list], galois: dict[int, tuple[int, list]],
+                      device="cuda") -> K.KeySet:
+    """A KeySet from the secret's (N,) ternary coefficients, the relin key's
+    (seed, b-halves) and {galois element: (seed, b-halves)}."""
+    basis = params.q + params.p
+    sk = K.SecretKey(np.asarray(s_small, dtype=np.int8).copy())
+    return K.KeySet(
+        params=params, sk=sk,
+        relin=evalkey_from_numpy(*relin, basis, device),
+        galois={int(g): evalkey_from_numpy(seed, bs, basis, device)
+                for g, (seed, bs) in galois.items()})
+
+
+def ciphertext_from_numpy(a: np.ndarray, b: np.ndarray, scale: float,
+                          basis: tuple[int, ...], domain: str,
+                          device="cuda") -> K.Ciphertext:
+    """A Ciphertext from (ℓ, N) u32 residue arrays of both components."""
+    if domain not in (pl.COEFF, pl.NTT):
+        raise ValueError(f"unknown domain {domain!r}")
+    basis = tuple(int(q) for q in basis)
+    return K.Ciphertext(pl.RnsPoly(pl.to_tensor(a, device), basis, domain),
+                        pl.RnsPoly(pl.to_tensor(b, device), basis, domain),
+                        float(scale))
+
+
+def ciphertext_to_numpy(ct: K.Ciphertext) -> dict:
+    """{"a", "b": u32 arrays, "scale", "basis", "domain"} of a ciphertext."""
+    assert ct.a.domain == ct.b.domain
+    return {"a": pl.to_numpy(ct.a.data), "b": pl.to_numpy(ct.b.data),
+            "scale": ct.scale, "basis": ct.basis, "domain": ct.a.domain}

@@ -22,6 +22,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end test (paper-scale params)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips itself when none is present")
 
 
 try:
