@@ -5,17 +5,18 @@
 
 Runs keygen/encrypt and one warm-up pass of hmult → rescale →
 hrot_hoisted([1, 4]) at ``paper_full`` (N = 2¹⁶, L = 48, K = 12, dnum = 4),
-then profiles one more pass of each op under ``torch.profiler`` and prints
-one JSON line per op:
+and of the eager engine's hoisted pair, then profiles one more pass of each
+op under ``torch.profiler`` and prints one JSON line per op:
 
 * ``wall_ms`` — median host-clock time of three unprofiled runs of the op,
   each ending in a device sync (``profiled_wall_ms``: the profiled run);
 * ``busy_ms`` — union of the profiled run's kernel intervals on the device,
   and ``idle_share`` = 1 − busy / wall_ms (how far the host holds the card
   back);
-* ``by_group`` — device ms of the port's four CUDA kernels (EFU, BConvU,
-  AutoU∘KS, multi-permutation) and of the plain torch kernels around them
-  (the NTT, ring ops, stacking), and the top torch kernels by name.
+* ``by_group`` — device ms of the port's CUDA kernels (EFU, BConvU, the NTT
+  forward and inverse, AutoU∘KS, the single and multi-permutation) and of the
+  plain torch kernels around them (ring ops, stacking, limb reorders), and
+  the top torch kernels by name.
 
 The Chrome traces go to ``--trace-dir`` (default ``build/profile``).
 Fails without CUDA.  Imports nothing of JAX.
@@ -35,7 +36,10 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 PORT_KERNELS = {"efu_kernel": "efu", "bconv_kernel": "bconvu",
-                "auto_ks_kernel": "auto_ks", "multi_perm_kernel": "automorphism_multi"}
+                "ntt_fwd_col_kernel": "ntt_fwd", "ntt_fwd_row_kernel": "ntt_fwd",
+                "ntt_inv_row_kernel": "ntt_inv", "ntt_inv_col_kernel": "ntt_inv",
+                "auto_ks_kernel": "auto_ks", "multi_perm_kernel": "automorphism_multi",
+                "perm_rows_kernel": "automorphism", "perm_eager_kernel": "automorphism_eager"}
 
 
 def kernel_events(trace_path: Path) -> list[dict]:
@@ -54,7 +58,7 @@ def summarize(kernels: list[dict], wall_ms: float, profiled_wall_ms: float) -> d
     by_name: dict[str, float] = defaultdict(float)
     for e in kernels:
         port = next((g for k, g in PORT_KERNELS.items() if k in e["name"]), None)
-        by_group[port or "torch (plain ops: NTT, ring ops, stacking)"] += e["dur"] / 1e3
+        by_group[port or "torch (plain ops: ring ops, stacking, reorders)"] += e["dur"] / 1e3
         if port is None:
             by_name[e["name"][:90]] += e["dur"] / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -82,13 +86,19 @@ def main() -> int:
                      params.q, params.N, rng=np.random.default_rng(i + 1),
                      device="cuda")
            for i, z in enumerate((_messages(16, 1), _messages(16, 2)))]
+    def eager_pair():
+        with ckks.use_engine("eager"):
+            return ckks.hrot_hoisted(r, [1, 4], keys)
+
     m = ckks.hmult(*cts, keys)
     r = ckks.rescale(m, params)
     ckks.hrot_hoisted(r, [1, 4], keys)                    # warm-up pass
+    eager_pair()
     torch.cuda.synchronize()
     ops = {"hmult": lambda: ckks.hmult(*cts, keys),
            "rescale": lambda: ckks.rescale(m, params),
-           "hoisted_rotations": lambda: ckks.hrot_hoisted(r, [1, 4], keys)}
+           "hoisted_rotations": lambda: ckks.hrot_hoisted(r, [1, 4], keys),
+           "eager_hoisted_rotations": eager_pair}
     trace_dir = Path(args.trace_dir)
     trace_dir.mkdir(parents=True, exist_ok=True)
 

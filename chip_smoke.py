@@ -11,13 +11,22 @@ with ``nvcc`` and runs, each phase printing one JSON line:
 3. kernels  — each kernel against its plain torch version on the card at the
               shapes the ``paper_full`` pipeline gives it (N = 2¹⁶, L = 48,
               K = 12, dnum = 4): bit-equal, with kernel / plain / library
-              times and the memory-or-operations bound;
+              times and the memory-or-operations bound; the NTT also against
+              the fused plain transform, round trip included, on inputs in
+              [0, 2q);
 4. cross    — keygen → encrypt → hmult → rescale → hrot_hoisted([1, 4]) at
               ``test_medium`` on the CPU (plain versions) and on the card
-              (kernels): every ciphertext must have equal bytes;
-5. pipeline — the same pipeline at ``paper_full`` on the card with |z| ≤ 1:
-              decode error against plaintext math must be < 1e-2, and every
-              kernel family must have launched (counts reset just before);
+              (kernels), on the fused and on the eager engine: every
+              ciphertext must have equal bytes;
+5. pipeline — the same pipeline at ``paper_full`` on the card with |z| ≤ 1,
+              then the eager engine's hoisted pair: decode error against
+              plaintext math must be < 1e-2; each op runs with the launch
+              counts reset just before it and read just after, and every
+              kernel of the path must have launched, the NTT in every op;
+              no plain NTT and no plain gather may run on card data;
+6. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
+              and the single permutation at N = 2¹⁶, ℓ = 48, its cache in a
+              temporary directory;
 
 then the kernel table as one JSON line, and the result line
 ``{"ok": true, "device": {...}}`` last.  Any failure raises: the script exits
@@ -25,10 +34,13 @@ non-zero and prints no result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -114,10 +126,12 @@ def phase_build():
 def phase_kernels(params):
     """Each kernel vs its plain version at the paper_full pipeline shapes."""
     import torch
-    from repro_torch.core import const_cache, poly as pl
+    from repro_torch.core import const_cache, ntt as nttm, poly as pl
+    from repro_torch.kernels import autotune
     from repro_torch.kernels.automorphism import ops as auto_ops
     from repro_torch.kernels.bconv import ops as bconv_ops
     from repro_torch.kernels.eltwise import ops as elt_ops
+    from repro_torch.kernels.ntt import ops as ntt_ops
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -126,16 +140,18 @@ def phase_kernels(params):
     rows = []
 
     def case(kernel, name, family, source, replaces, cuda_fn, plain_fn, args,
-             nbytes, ops, library=None):
+             nbytes, ops, library=None, extra=None):
         got = cuda_fn(*args)
         want = plain_fn(*args)
         torch.cuda.synchronize()
         equal = torch.equal(got, want)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        checks = extra(got) if extra else {}
+        equal = equal and all(checks.values())
         b_ms, b_by = bound_ms(nbytes, ops)
         row = {"kernel": kernel, "name": name, "family": family, "route": "cuda", "source": source,
                "replaces": replaces, "shape": list(args[0].shape),
-               "equal": equal, "max_abs_err": err,
+               "equal": equal, "max_abs_err": err, **checks,
                "ms": gpu_ms(lambda: cuda_fn(*args)),
                "plain_ms": gpu_ms(lambda: plain_fn(*args), reps=2, rounds=3),
                "bound_ms": b_ms, "bound_by": b_by,
@@ -143,7 +159,7 @@ def phase_kernels(params):
         emit({"phase": "kernel", **row})
         if not equal:
             raise AssertionError(f"{name}: kernel differs from its plain version "
-                                 f"(max |diff| {err})")
+                                 f"(max |diff| {err}, checks {checks})")
         rows.append(row)
 
     src = "src/repro_torch/kernels/csrc/"
@@ -203,41 +219,132 @@ def phase_kernels(params):
          nbytes=(xb.numel() + R * xb.numel()) * 4 + R * N * 8, ops=0,
          library=lambda x: torch.gather(
              x.expand(R, -1, -1), 2, perms[:, None, :].expand(R, x.shape[1], N)))
+
+    # four-step NTT at the default R: hmult's operand and a ModUp extension
+    # (forward), ModUp's iNTT of the operand and the stacked relinearization
+    # ModDown's P-part (inverse); inputs in [0, 2q)
+    for fwd, name, basis, lead in (
+            (True, "ntt_fwd_1x48", params.q[:L], (1,)),
+            (True, "ntt_fwd_modup_ext_1x48", params.q[12:L] + params.p, (1,)),
+            (False, "ntt_inv_1x48", params.q[:L], (1,)),
+            (False, "ntt_inv_moddown_2x12", params.p, (2,))):
+        ell = len(basis)
+        qb = const_cache.device_q(basis, dev)
+        xl = (residues(basis, lead, N, gen).to(torch.int64)
+              + qb * torch.randint(0, 2, (*lead, ell, N), generator=gen,
+                                   device=dev)).to(torch.int32)    # [0, 2q)
+        split, tile = ntt_ops.resolve(xl, None, None)
+        fc = const_cache.device_four_step_consts(basis, N, split, dev)
+        nc = const_cache.device_ntt_consts(basis, N, dev)
+        fused = (nttm.ntt if fwd else nttm.intt)(xl, nc)
+        back = ntt_ops.ntt_inv if fwd else ntt_ops.ntt_fwd
+        reduced = (xl.to(torch.int64) % qb).to(torch.int32)
+
+        def extra(got, fused=fused, back=back, basis=basis, reduced=reduced):
+            return {"equal_fused": torch.equal(got, fused),
+                    "round_trip": torch.equal(back(got, basis), reduced)}
+        B = xl.numel() // N
+        # bytes: data in and out, twiddles and stage tables with companions;
+        # operations: per limb (N/2)·log₂N butterflies and N twiddle products
+        case("ntt_fwd" if fwd else "ntt_inv", name, "ntt", src + "ntt.cu",
+             "src/repro/kernels/ntt/kernel.py:156",
+             lambda x, fc=fc, fwd=fwd, tile=tile: ntt_ops.ntt_cuda(x, fc, fwd, tile),
+             lambda x, fc=fc, fwd=fwd: ntt_ops.ntt_plain(x, fc, fwd), [xl],
+             nbytes=(2 * B * N + 2 * ell * (N + split + N // split)) * 4,
+             ops=B * (N // 2 * (N.bit_length() - 1) + N),
+             extra=extra)
+
+    # single permutation: φ_g of a stacked pair (2, 46, N); eager: (1, 46, N)
+    perm = const_cache.device_galois_perm(N, gs[0], dev)
+    x2 = residues(params.q[:L - 2], (2,), N, gen)
+    rows_per_cta = autotune.best_config("automorphism", N, L - 2)["rows_per_cta"]
+    case("automorphism", "automorphism_2x46", "automorphism",
+         src + "automorphism.cu", "src/repro/kernels/automorphism/kernel.py:82",
+         lambda x: auto_ops.automorphism_cuda(x, perm, rows_per_cta),
+         lambda x: auto_ops.automorphism_plain(x, perm), [x2],
+         nbytes=2 * x2.numel() * 4 + N * 8, ops=0,
+         library=lambda x: x.index_select(-1, perm))
+    case("automorphism_eager", "automorphism_eager_1x46", "automorphism",
+         src + "automorphism.cu", "src/repro/kernels/automorphism/kernel.py:54",
+         lambda x: auto_ops.automorphism_eager_cuda(x, perm),
+         lambda x: auto_ops.automorphism_eager_plain(x, perm), [xb],
+         nbytes=2 * xb.numel() * 4 + N * 8, ops=0,
+         library=lambda x: x.index_select(-1, perm))
     return rows
+
+
+def _timed_op(fn, sync):
+    """(result, host ms ending in a device sync, per-kernel launches), with
+    the launch counts reset just before the op and read just after."""
+    from repro_torch.kernels import config
+    config.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, config.kernel_launch_counts()
 
 
 def _run_ops(cts, keys, params, rotations, sync):
     """hmult → rescale → hoisted rotations once: ({stage: ciphertext},
-    {op: milliseconds on the host clock, each ending in a device sync})."""
+    {op: milliseconds on the host clock, each ending in a device sync},
+    {op: per-kernel launches})."""
     from repro_torch.core import ckks
-    t0 = time.perf_counter()
-    m = ckks.hmult(cts[0], cts[1], keys)
-    sync()
-    t1 = time.perf_counter()
-    r = ckks.rescale(m, params)
-    sync()
-    t2 = time.perf_counter()
-    rots = ckks.hrot_hoisted(r, list(rotations), keys)
-    sync()
-    t3 = time.perf_counter()
-    ms = {"hmult_ms": (t1 - t0) * 1e3, "rescale_ms": (t2 - t1) * 1e3,
-          "hoisted_rotations_ms": (t3 - t2) * 1e3}
-    return {"hmult": m, "rescale": r, "rot1": rots[0], "rot4": rots[1]}, ms
+    m, hm_ms, hm_l = _timed_op(lambda: ckks.hmult(cts[0], cts[1], keys), sync)
+    r, rs_ms, rs_l = _timed_op(lambda: ckks.rescale(m, params), sync)
+    rots, rot_ms, rot_l = _timed_op(
+        lambda: ckks.hrot_hoisted(r, list(rotations), keys), sync)
+    ms = {"hmult_ms": hm_ms, "rescale_ms": rs_ms, "hoisted_rotations_ms": rot_ms}
+    launches = {"hmult": hm_l, "rescale": rs_l, "hoisted_rotations": rot_l}
+    return {"hmult": m, "rescale": r, "rot1": rots[0], "rot4": rots[1]}, ms, launches
 
 
-def _pipeline(params, device, z1, z2, rotations=(1, 4), warm_reps=0):
-    """keygen → encrypt, then the ops once with the launch counters reset
-    just before and read just after (the cold run, which also stages the
-    constants and regenerates the evk a-halves), then ``warm_reps`` more
-    runs whose median per-op times are the steady-state latencies."""
-    import numpy as np
+def _sync_for(device):
     import torch
-    from repro_torch.core import encoding as enc, keys as K
-    from repro_torch.kernels import config
 
     def sync():
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
+    return sync
+
+
+@contextlib.contextmanager
+def plain_calls_on_card():
+    """Count the calls of the NTT's and the single permutation's plain
+    versions on CUDA data while the block runs (the main path must make
+    none): the fused plain transform, the plain four-step, the plain gathers."""
+    from repro_torch.core import ntt as nttm
+    from repro_torch.kernels.automorphism import ops as auto_ops
+    calls = collections.Counter()
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (nttm, "ntt"), (nttm, "intt"), (nttm, "four_step_ntt"),
+        (nttm, "four_step_intt"), (auto_ops, "automorphism_plain"),
+        (auto_ops, "automorphism_eager_plain"))]
+
+    def counted(name, fn):
+        def wrapper(x, *args, **kwargs):
+            if x.is_cuda:
+                calls[name] += 1
+            return fn(x, *args, **kwargs)
+        return wrapper
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _pipeline(params, device, z1, z2, rotations=(1, 4), warm_reps=0):
+    """keygen → encrypt, then the ops once, each with the launch counters
+    reset just before and read just after (the cold run, which also stages
+    the constants and regenerates the evk a-halves), then ``warm_reps`` more
+    runs whose median per-op times are the steady-state latencies."""
+    import numpy as np
+    from repro_torch.core import encoding as enc, keys as K
+
+    sync = _sync_for(device)
 
     t0 = time.perf_counter()
     keys = K.keygen(params, rotations=rotations, seed=SEED, device=device)
@@ -247,9 +354,10 @@ def _pipeline(params, device, z1, z2, rotations=(1, 4), warm_reps=0):
                      device=device) for i, z in enumerate((z1, z2))]
     sync()
     times = {"keygen_encrypt_s": time.perf_counter() - t0}
-    config.reset_launches()
-    out, cold = _run_ops(cts, keys, params, rotations, sync)
-    launches = config.launch_counts()
+    with plain_calls_on_card() as plain:
+        out, cold, launches = _run_ops(cts, keys, params, rotations, sync)
+    if plain:
+        raise AssertionError(f"plain versions ran on card data: {dict(plain)}")
     times.update({"cold_" + k: v for k, v in cold.items()})
     warm = [_run_ops(cts, keys, params, rotations, sync)[1]
             for _ in range(warm_reps)]
@@ -266,29 +374,40 @@ def _messages(n, seed):
 
 
 def phase_cross():
-    """Equal bytes from the plain versions on the CPU and the kernels on the card."""
+    """Equal bytes from the plain versions on the CPU and the kernels on the
+    card, on both engines."""
     import torch
-    from repro_torch.core import params as prm, poly as pl
+    from repro_torch.core import ckks, params as prm
     p = prm.test_medium()
     z1, z2 = _messages(8, 1), _messages(8, 2)
-    _, cpu, _, _ = _pipeline(p, "cpu", z1, z2)
-    _, gpu, _, launches = _pipeline(p, DEVICE, z1, z2)
-    equal = {}
-    for stage in cpu:
-        equal[stage] = bool(
-            torch.equal(cpu[stage].a.data, gpu[stage].a.data.cpu())
-            and torch.equal(cpu[stage].b.data, gpu[stage].b.data.cpu()))
+    equal, gpu_launches = {}, {}
+    for engine in ("fused", "eager"):
+        with ckks.use_engine(engine):
+            _, cpu, _, _ = _pipeline(p, "cpu", z1, z2)
+            _, gpu, _, gpu_launches[engine] = _pipeline(p, DEVICE, z1, z2)
+        for stage in cpu:
+            equal[f"{engine}/{stage}"] = bool(
+                torch.equal(cpu[stage].a.data, gpu[stage].a.data.cpu())
+                and torch.equal(cpu[stage].b.data, gpu[stage].b.data.cpu()))
     emit({"phase": "cross", "params": "test_medium", "N": p.N, "L": p.L,
-          "equal": equal, "gpu_launches": launches})
+          "equal": equal, "gpu_launches": gpu_launches})
     if not all(equal.values()):
         raise AssertionError(f"CPU and GPU ciphertexts differ: {equal}")
-    digest = pl.to_numpy(gpu["rot4"].b.data)[:2, :4].tolist()
-    return digest
+    if not any(ops.get("hoisted_rotations", {}).get("automorphism", 0)
+               for ops in gpu_launches.values()):
+        raise AssertionError("the eager engine never ran the single-permutation kernel")
+
+
+# Kernels each run of the main path must launch: the fused engine's three ops,
+# then the eager engine's hoisted pair.
+FUSED_PATH_KERNELS = ("efu", "bconvu", "ntt_fwd", "ntt_inv", "auto_ks",
+                      "automorphism_multi")
+EAGER_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "automorphism")
 
 
 def phase_pipeline(params):
     import numpy as np
-    from repro_torch.core import encoding as enc, keys as K, rns
+    from repro_torch.core import ckks, const_cache, encoding as enc, keys as K, rns
     t0 = time.perf_counter()
     for q in params.q + params.p:
         rns.prime_tables(q, params.N)
@@ -296,9 +415,23 @@ def phase_pipeline(params):
     n = 16
     z1, z2 = _messages(n, 1), _messages(n, 2)
     keys, cts, times, launches = _pipeline(params, DEVICE, z1, z2, warm_reps=5)
+    # the eager engine's hoisted pair: permutes the hoisted digits and b
+    # through RnsPoly.automorphism, the single-permutation kernel
+    sync = _sync_for(DEVICE)
+    eager = lambda: ckks.hrot_hoisted(cts["rescale"], [1, 4], keys)
+    with ckks.use_engine("eager"):
+        with plain_calls_on_card() as plain:
+            rots, cold_ms, launches["eager_hoisted_rotations"] = _timed_op(eager, sync)
+        warm = [_timed_op(eager, sync)[1] for _ in range(3)]
+    if plain:
+        raise AssertionError(f"plain versions ran on card data: {dict(plain)}")
+    times.update({"cold_eager_hoisted_rotations_ms": cold_ms,
+                  "eager_hoisted_rotations_ms": statistics.median(warm)})
+    cts.update({"eager_rot1": rots[0], "eager_rot4": rots[1]})
     prod = np.concatenate([z1 * z2, np.zeros(params.slots - n)])
     want = {"rescale": prod[:n], "rot1": np.roll(prod, -1)[:n],
-            "rot4": np.roll(prod, -4)[:n]}
+            "rot4": np.roll(prod, -4)[:n], "eager_rot1": np.roll(prod, -1)[:n],
+            "eager_rot4": np.roll(prod, -4)[:n]}
     t0 = time.perf_counter()
     errors = {}
     for stage, z in want.items():
@@ -309,24 +442,50 @@ def phase_pipeline(params):
     emit({"phase": "pipeline", "params": "paper_full", "N": params.N,
           "L": params.L, "K": params.K, "dnum": params.dnum,
           "levels": {s: cts[s].level for s in cts}, "max_error": errors,
-          "launches": launches, "host_tables_s": tables_s,
-          "decrypt_decode_s": decode_s, **times})
+          "launches": launches, "plain_calls_on_card": 0,
+          "four_step_tables_mb": const_cache.staged_bytes("four_step", DEVICE) / 1e6,
+          "host_tables_s": tables_s, "decrypt_decode_s": decode_s, **times})
     if not all(e < 1e-2 for e in errors.values()):
         raise AssertionError(f"decode error ≥ 1e-2: {errors}")
-    for family in ("eltwise", "bconv", "auto_ks", "automorphism"):
-        if launches.get(family, 0) <= 0:
-            raise AssertionError(f"kernel family {family} never launched: {launches}")
-    return launches
+    for op, counts in launches.items():
+        path = EAGER_PATH_KERNELS if op.startswith("eager") else ()
+        for kernel in path + ("ntt_fwd", "ntt_inv"):
+            if counts.get(kernel, 0) <= 0:
+                raise AssertionError(f"{op}: kernel {kernel} never launched: {counts}")
+    total = collections.Counter()
+    for counts in launches.values():
+        total.update(counts)
+    for kernel in FUSED_PATH_KERNELS + EAGER_PATH_KERNELS:
+        if total[kernel] <= 0:
+            raise AssertionError(f"kernel {kernel} never launched: {dict(total)}")
+    return dict(total)
+
+
+def phase_autotune(params, cache_file):
+    """A quick sweep of the NTT's and the single permutation's knobs through
+    the autotuner's command-line entry point."""
+    from repro_torch.kernels import autotune
+    t0 = time.perf_counter()
+    autotune.main(["--families", "ntt", "automorphism", "--N", str(params.N),
+                   "--L", str(params.L), "--quick", "--out", str(cache_file)])
+    winners = {k: {"config": e["config"], "us": e["us"],
+                   "sweep": [(s["config"], s["us"]) for s in e["sweep"]]}
+               for k, e in autotune.entries().items()}
+    emit({"phase": "autotune", "N": params.N, "L": params.L,
+          "seconds": time.perf_counter() - t0, "winners": winners})
+    if len(winners) != 2:
+        raise AssertionError(f"autotune recorded {sorted(winners)}")
 
 
 def kernel_table(rows, launches):
     """One entry per kernel: its first case's numbers, the main path's
-    launches of its family, and every measured case."""
+    launches of that kernel, and every measured case."""
     table = []
     for kernel in dict.fromkeys(r["kernel"] for r in rows):
         cases = [r for r in rows if r["kernel"] == kernel]
         main_case = cases[0]
-        table.append({"name": kernel, "launches": launches.get(main_case["family"], 0),
+        table.append({"name": kernel, "launches": launches.get(kernel, 0),
+                      "on_main_path": kernel in FUSED_PATH_KERNELS + EAGER_PATH_KERNELS,
                       **{k: main_case[k] for k in (
                           "route", "source", "replaces", "max_abs_err", "ms",
                           "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -343,11 +502,19 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     from repro_torch.core import params as prm
-    phase_build()
-    paper = prm.paper_full()
-    rows = phase_kernels(paper)
-    phase_cross()
-    launches = phase_pipeline(paper)
+    from repro_torch.kernels import autotune
+    with tempfile.TemporaryDirectory() as tmp:
+        # a private, cold launch-config cache: every knob takes its default
+        # until the autotune phase, which runs last
+        cache_file = Path(tmp) / "autotune.json"
+        autotune.set_cache_path(cache_file)
+        phase_build()
+        paper = prm.paper_full()
+        rows = phase_kernels(paper)
+        phase_cross()
+        launches = phase_pipeline(paper)
+        phase_autotune(paper, cache_file)
+        autotune.set_cache_path(None)
     table = kernel_table(rows, launches)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

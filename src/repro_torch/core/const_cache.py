@@ -12,7 +12,9 @@ Host-side table *generation* stays in :mod:`repro_torch.core.rns` /
 :mod:`repro_torch.core.ntt` (numpy + Python ints, lru-cached); this cache is
 purely the numpy → device staging layer.  Residue tables are staged as int64
 (the arithmetic type of :mod:`repro_torch.core.modmath`), index tables as
-int64 (what ``index_select`` takes).
+int64 (what ``index_select`` takes).  The exception is the four-step NTT
+kernel's tables (:func:`device_four_step_consts`): they stay u32 bit patterns
+in int32 tensors, half the bytes the kernel has to read.
 """
 from __future__ import annotations
 
@@ -64,10 +66,14 @@ def device_of(device) -> torch.device:
     return d
 
 
-def _stage(x, device: torch.device):
+def _stage(x, device: torch.device, u32_bits: bool = False):
+    """One host→device copy: int64 values, or with ``u32_bits`` the u32 bit
+    patterns kept in int32 (values ≥ 2³¹ read negative)."""
     global _stage_events
     _stage_events += 1
-    return torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
+    a = np.asarray(x)
+    a = a.astype(np.uint32).view(np.int32) if u32_bits else a.astype(np.int64)
+    return torch.as_tensor(a, device=device)
 
 
 def device_table(key: Hashable, builder: Callable[[], Any], device) -> Any:
@@ -89,6 +95,38 @@ def device_ntt_consts(basis: tuple[int, ...], N: int,
     return nttm.NttConsts(*device_table(
         ("ntt", tuple(basis), N),
         lambda: tuple(nttm.stacked_ntt_consts(tuple(basis), N)), device))
+
+
+def device_four_step_consts(basis: tuple[int, ...], N: int, R: int,
+                            device) -> nttm.FourStepConsts:
+    """The four-step tables of (basis, N, R) as device tensors of u32 bits in
+    int32, staged once per (basis, N, R, device)."""
+    basis = tuple(basis)
+    dev = device_of(device)
+
+    def stage():
+        fc = nttm.stacked_four_step_consts(basis, N, R)
+        bits = lambda t: _stage(t, dev, u32_bits=True)
+        return fc._replace(
+            col=nttm.NttConsts(*(bits(t) for t in fc.col)),
+            **{f: bits(getattr(fc, f)) for f in fc._fields
+               if f not in ("R", "C", "col")})
+    return _cache.get((("four_step", basis, N, R), str(dev)), stage)
+
+
+def staged_bytes(kind: str, device) -> int:
+    """Device bytes held by the staged entries of one kind ("four_step",
+    "ntt", "bconv", ...) on ``device``."""
+    dev = str(device_of(device))
+
+    def nbytes(v):
+        if isinstance(v, torch.Tensor):
+            return v.numel() * v.element_size()
+        if isinstance(v, tuple):
+            return sum(nbytes(x) for x in v)
+        return 0
+    return sum(nbytes(v) for (key, d), v in _cache._store.items()
+               if d == dev and key[0] == kind)
 
 
 def device_q(basis: tuple[int, ...], device) -> torch.Tensor:

@@ -11,6 +11,12 @@ through :mod:`repro_torch.core.modmath` and per-limb constants come
 device-resident from :mod:`repro_torch.core.const_cache`.  The samplers are
 host-side numpy on the reference's ``default_rng`` call sequence, so the same
 seed gives byte-identical key material.
+
+On CUDA data the NTT, the iNTT and the automorphism run the hand-written
+kernels (:mod:`repro_torch.kernels.ntt`, the single-permutation kernel of
+:mod:`repro_torch.kernels.automorphism`); on CPU data they run the fused plain
+transform and ``index_select``, as the reference's ``RnsPoly`` does.  Both
+give the same canonical residues.
 """
 from __future__ import annotations
 
@@ -25,6 +31,9 @@ from . import guards
 from . import modmath as mm
 from . import ntt as nttm
 from . import trace
+from repro_torch.kernels import native
+from repro_torch.kernels.automorphism import ops as auto_ops
+from repro_torch.kernels.ntt import ops as ntt_ops
 
 COEFF = "coeff"
 NTT = "ntt"
@@ -78,12 +87,16 @@ class RnsPoly:
         if self.domain == NTT:
             return self
         trace.record("ntt", int(np.prod(self.data.shape[:-1])), self.N)
+        if native.on_cuda(self.data):
+            return RnsPoly(ntt_ops.ntt_fwd(self.data, self.basis), self.basis, NTT)
         return RnsPoly(nttm.ntt(self.data, self.c()), self.basis, NTT)
 
     def to_coeff(self) -> "RnsPoly":
         if self.domain == COEFF:
             return self
         trace.record("intt", int(np.prod(self.data.shape[:-1])), self.N)
+        if native.on_cuda(self.data):
+            return RnsPoly(ntt_ops.ntt_inv(self.data, self.basis), self.basis, COEFF)
         return RnsPoly(nttm.intt(self.data, self.c()), self.basis, COEFF)
 
     # -- ring ops (domain-agnostic element-wise; mul requires NTT) -----------
@@ -138,7 +151,7 @@ class RnsPoly:
         ``perm`` is an int64 index tensor on the data's device."""
         assert self.domain == NTT
         trace.record("auto", int(np.prod(self.data.shape[:-1])), self.N)
-        return RnsPoly(self.data.index_select(-1, perm), self.basis, NTT)
+        return RnsPoly(auto_ops.automorphism(self.data, perm), self.basis, NTT)
 
     def automorphism_by_gelt(self, g: int) -> "RnsPoly":
         """φ_g via the device-staged perm table — zero per-call uploads."""

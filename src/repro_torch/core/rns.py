@@ -87,10 +87,28 @@ def bitrev_indices(n: int) -> np.ndarray:
     return rev
 
 
-def _pack_shoup(values: list[int], q: int) -> tuple[np.ndarray, np.ndarray]:
-    w = np.array(values, dtype=np.uint32)
-    s = np.array([shoup(v, q) for v in values], dtype=np.uint32)
-    return w, s
+def _pack_shoup(values, q: int) -> tuple[np.ndarray, np.ndarray]:
+    """Residues < q and their Shoup companions ⌊w·2³²/q⌋ as u32 arrays.
+
+    ``w << 32`` is below 2⁶² for w < 2³⁰, so int64 holds it exactly.
+    """
+    w = np.asarray(values, dtype=np.int64)
+    return w.astype(np.uint32), ((w << WORD_BITS) // q).astype(np.uint32)
+
+
+def _psi_powers(q: int, N: int) -> np.ndarray:
+    """ψ^e mod q for every e in [0, 2N), as int64 (ψ has order 2N).
+
+    Built by doubling: the block [s, 2s) is the block [0, s) times ψ^s.
+    Products of two residues below 2³⁰ are below 2⁶⁰, exact in int64.
+    """
+    psi = find_psi(q, N)
+    out = np.ones(2 * N, dtype=np.int64)
+    s = 1
+    while s < 2 * N:
+        out[s:2 * s] = out[:s] * pow(psi, s, q) % q
+        s *= 2
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,12 +133,10 @@ class PrimeTables:
 @functools.lru_cache(maxsize=None)
 def prime_tables(q: int, N: int) -> PrimeTables:
     psi = find_psi(q, N)
-    psi_inv = pow(psi, q - 2, q)
+    pw = _psi_powers(q, N)
     rev = bitrev_indices(N)
-    fwd = [pow(psi, int(rev[t]), q) for t in range(N)]
-    inv = [pow(psi_inv, int(rev[t]), q) for t in range(N)]
-    w_f, s_f = _pack_shoup(fwd, q)
-    w_i, s_i = _pack_shoup(inv, q)
+    w_f, s_f = _pack_shoup(pw[rev], q)                    # ψ^{brev(t)}
+    w_i, s_i = _pack_shoup(pw[(2 * N - rev) % (2 * N)], q)  # ψ^{-brev(t)}
     n_inv = pow(N, q - 2, q)
     mu = (1 << 62) // q
     return PrimeTables(
@@ -175,7 +191,6 @@ def four_step_tables(q: int, N: int, R: int) -> FourStepTables:
     C = N // R
     base = prime_tables(q, N)
     psi = base.psi
-    psi_inv = pow(psi, q - 2, q)
 
     # column-phase negacyclic tables for length R with psi_R = psi^C
     psi_R = pow(psi, C, q)
@@ -193,22 +208,13 @@ def four_step_tables(q: int, N: int, R: int) -> FourStepTables:
         qinv_neg=base.qinv_neg, r2=base.r2, mu_hi=base.mu_hi, mu_lo=base.mu_lo,
     )
 
-    # inter-step twiddles T[k1, n2] = psi^{(2 k1 + 1) n2}
-    tw = np.zeros((R, C), dtype=np.uint32)
-    tw_s = np.zeros((R, C), dtype=np.uint32)
-    tw_i = np.zeros((R, C), dtype=np.uint32)
-    tw_is = np.zeros((R, C), dtype=np.uint32)
-    for k1 in range(R):
-        base_w = pow(psi, 2 * k1 + 1, q)
-        base_wi = pow(psi_inv, 2 * k1 + 1, q)
-        w, wi = 1, 1
-        for n2 in range(C):
-            tw[k1, n2] = w
-            tw_s[k1, n2] = shoup(w, q)
-            tw_i[k1, n2] = wi
-            tw_is[k1, n2] = shoup(wi, q)
-            w = w * base_w % q
-            wi = wi * base_wi % q
+    # inter-step twiddles T[k1, n2] = psi^{(2 k1 + 1) n2}: one lookup in the
+    # table of the 2N powers of ψ by exponent mod 2N (ψ^{-e} = ψ^{2N-e})
+    e = np.outer(2 * np.arange(R, dtype=np.int64) + 1,
+                 np.arange(C, dtype=np.int64)) % (2 * N)
+    pw = _psi_powers(q, N)
+    tw, tw_s = _pack_shoup(pw[e], q)
+    tw_i, tw_is = _pack_shoup(pw[(2 * N - e) % (2 * N)], q)
 
     # row-phase cyclic powers: omega_C = psi^{2R}
     omega = pow(psi, 2 * R, q)

@@ -1,15 +1,102 @@
-"""AutoU kernels: the multi-permutation and the fused AutoU∘KS, with their
-plain torch versions and wrappers.
+"""AutoU kernels: the single permutation (batched and eager), the
+multi-permutation and the fused AutoU∘KS, with their plain torch versions and
+wrappers.
 
-Permutation tables are device-resident (R, N) int64 stacks from
-:mod:`repro_torch.core.const_cache` (staged once per (N, gs, device)).
+Permutation tables are device-resident int64 index vectors from
+:mod:`repro_torch.core.const_cache`: (N,) per Galois element, (R, N) per
+rotation set, staged once per device.  The single-permutation kernel's
+``rows_per_cta`` resolves through
+:func:`repro_torch.kernels.autotune.best_config` when the caller pins none.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import const_cache
-from repro_torch.kernels import config, native
+from repro_torch.kernels import autotune, config, native
+
+
+def automorphism(x: torch.Tensor, perm: torch.Tensor,
+                 rows_per_cta: int | None = None) -> torch.Tensor:
+    """out[..., k] = x[..., perm[k]] over every leading dim, one launch."""
+    if native.on_cuda(x, perm):
+        if rows_per_cta is None:
+            ell = x.shape[-2] if x.dim() > 1 else 1
+            rows_per_cta = autotune.best_config(
+                "automorphism", x.shape[-1], ell, backend="cuda")["rows_per_cta"]
+        return automorphism_cuda(x.contiguous(), perm, rows_per_cta)
+    return automorphism_plain(x, perm)
+
+
+def apply_galois(x: torch.Tensor, N: int, g: int,
+                 rows_per_cta: int | None = None) -> torch.Tensor:
+    """φ_g of (..., N) NTT-domain residues, batched over all leading dims."""
+    return automorphism(x, const_cache.device_galois_perm(N, g, x.device),
+                        rows_per_cta)
+
+
+def apply_rotation(x: torch.Tensor, N: int, r: int,
+                   rows_per_cta: int | None = None) -> torch.Tensor:
+    """Slot rotation by ``r``: φ_g with g = 5^r mod 2N."""
+    from repro_torch.core import poly
+    return apply_galois(x, N, poly.galois_elt(r, N), rows_per_cta)
+
+
+def automorphism_plain(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched kernel: one gather along the last axis."""
+    return x.index_select(-1, perm)
+
+
+def automorphism_cuda(x: torch.Tensor, perm: torch.Tensor,
+                      rows_per_cta: int) -> torch.Tensor:
+    """Launch the batched single-permutation kernel (``csrc/automorphism.cu``)."""
+    N = x.shape[-1]
+    _check_perm(x, perm)
+    B = x.numel() // N if N else 0
+    rows = config.effective_block(max(B, 1), rows_per_cta)
+    out = torch.empty_like(x)
+    err = native.lib("automorphism").automorphism_rows_launch(
+        x.data_ptr(), perm.data_ptr(), out.data_ptr(), B, N, rows,
+        native.stream_of(x))
+    native.check("automorphism", err, "automorphism")
+    config.count_launch("automorphism", "automorphism")
+    return out
+
+
+def automorphism_eager(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """(P, ℓ, N) → out[p, i, k] = x[p, i, perm[k]], one CTA per (poly, limb)."""
+    if native.on_cuda(x, perm):
+        return automorphism_eager_cuda(x.contiguous(), perm)
+    return automorphism_eager_plain(x, perm)
+
+
+def automorphism_eager_plain(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Plain version of the eager kernel: one gather per (poly, limb) row."""
+    P, ell, _ = x.shape
+    return torch.stack([torch.stack([x[p, i].index_select(0, perm)
+                                     for i in range(ell)]) for p in range(P)])
+
+
+def automorphism_eager_cuda(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Launch the eager single-permutation kernel (``csrc/automorphism.cu``)."""
+    if x.dim() != 3:
+        raise ValueError(f"eager automorphism takes (P, ℓ, N), got {tuple(x.shape)}")
+    _check_perm(x, perm)
+    P, ell, N = x.shape
+    out = torch.empty_like(x)
+    err = native.lib("automorphism").automorphism_eager_launch(
+        x.data_ptr(), perm.data_ptr(), out.data_ptr(), P * ell, N,
+        native.stream_of(x))
+    native.check("automorphism", err, "automorphism_eager")
+    config.count_launch("automorphism", "automorphism_eager")
+    return out
+
+
+def _check_perm(x: torch.Tensor, perm: torch.Tensor) -> None:
+    native.require({"x": x}, torch.int32, x.device)
+    native.require({"perm": perm}, torch.int64, x.device)
+    if perm.shape != (x.shape[-1],):
+        raise ValueError(f"perm {tuple(perm.shape)} for N = {x.shape[-1]}")
 
 
 def apply_galois_many(x: torch.Tensor, N: int, gs: tuple) -> torch.Tensor:
@@ -44,7 +131,7 @@ def automorphism_multi_cuda(x: torch.Tensor, perms: torch.Tensor) -> torch.Tenso
         x.data_ptr(), perms.data_ptr(), out.data_ptr(), G, R, L, N,
         native.stream_of(x))
     native.check("automorphism", err, "automorphism_multi")
-    config.count_launch("automorphism")
+    config.count_launch("automorphism", "automorphism_multi")
     return out
 
 
@@ -99,7 +186,7 @@ def auto_ks_cuda(exts, evk_a, evk_b, perms, q) -> torch.Tensor:
         exts.data_ptr(), evk_a.data_ptr(), evk_b.data_ptr(), perms.data_ptr(),
         q.data_ptr(), out.data_ptr(), J, G, R, L, N, native.stream_of(exts))
     native.check("automorphism", err, "auto_ks")
-    config.count_launch("auto_ks")
+    config.count_launch("auto_ks", "auto_ks")
     return out
 
 

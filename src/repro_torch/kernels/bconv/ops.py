@@ -69,5 +69,5 @@ def bconv_matmul_cuda(t: torch.Tensor, table: torch.Tensor,
         t.data_ptr(), table.data_ptr(), q_dst.data_ptr(), out.data_ptr(),
         B, ell, K, N, native.stream_of(t))
     native.check("bconv", err, "bconv")
-    config.count_launch("bconv")
+    config.count_launch("bconv", "bconvu")
     return out

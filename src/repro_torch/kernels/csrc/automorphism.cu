@@ -16,7 +16,21 @@
 //
 //   out[r, i, k] = x[g, i, perms[r, k]]        (same G ∈ {1, R} broadcast)
 //
-// One thread per output (r, i, k).  The TPU kernels keep a whole (limb block,
+// automorphism_rows replaces
+// src/repro/kernels/automorphism/kernel.py:automorphism_pallas, and
+// automorphism_eager replaces automorphism_pallas_eager:
+//
+//   out[b, k] = x[b, perm[k]]       (every leading dim flattened into b)
+//
+// automorphism_rows: grid (ceil(B / rows), ceil(N / 256)); each thread reads
+// perm[k] once and gathers it for the CTA's block of ``rows`` rows (the
+// autotuner's knob), so the index read is shared by the block.
+// automorphism_eager: one CTA per (poly, limb) row, looping over N — the
+// reference's one-limb-per-program granularity, kept as the before-side of a
+// comparison.
+//
+// auto_ks and automorphism_multi: one thread per output (r, i, k).  The TPU
+// kernels keep a whole (limb block,
 // N) tile in VMEM and gather there; a limb row at N = 2^16 is 256 KiB, more
 // than a CTA's 227 KB of shared memory, so here the gather reads global
 // memory directly and the 50 MB L2 carries it: the J·L·N·4 B of hoisted
@@ -25,7 +39,7 @@
 //
 // Bound on the H100: bytes.  auto_ks must read the digits once and both evk
 // halves (2·R·J·L·N words), and write 2·R·L·N words, for 2·R·J·L·N modular
-// products; automorphism_multi only copies.  Design response: evk reads and
+// products; the permutations only copy.  Design response: evk reads and
 // all writes are coalesced (consecutive k per warp); the scattered digit
 // reads stay within one 256 KiB limb row per warp, i.e. in L2; the u64
 // accumulator is reduced every 15 products (common.cuh), so both halves of a
@@ -86,6 +100,26 @@ __global__ void multi_perm_kernel(const uint32_t* __restrict__ x,
                perms[static_cast<long long>(r) * N + k]];
 }
 
+__global__ void perm_rows_kernel(const uint32_t* __restrict__ x,
+                                 const int64_t* __restrict__ perm,
+                                 uint32_t* __restrict__ out,
+                                 long long B, int N, int rows) {
+  const int k = blockIdx.y * blockDim.x + threadIdx.x;
+  if (k >= N) return;
+  const long long src = perm[k];
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
+  const long long r1 = r0 + rows < B ? r0 + rows : B;
+  for (long long r = r0; r < r1; ++r) out[r * N + k] = x[r * N + src];
+}
+
+__global__ void perm_eager_kernel(const uint32_t* __restrict__ x,
+                                  const int64_t* __restrict__ perm,
+                                  uint32_t* __restrict__ out, int N) {
+  const long long base = static_cast<long long>(blockIdx.x) * N;
+  for (int k = threadIdx.x; k < N; k += blockDim.x)
+    out[base + k] = x[base + perm[k]];
+}
+
 }  // namespace
 
 // exts (J, G, L, N) u32, evk_a/evk_b (R, J, L, N) u32, perms (R, N) int64,
@@ -115,5 +149,30 @@ extern "C" int automorphism_multi_launch(const void* x, const void* perms,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<const int64_t*>(perms),
       static_cast<uint32_t*>(out), G, R, L, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (B, N) u32, perm (N,) int64 → out (B, N) u32; ``rows`` rows per CTA.
+extern "C" int automorphism_rows_launch(const void* x, const void* perm,
+                                        void* out, long long B, int N, int rows,
+                                        void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  const dim3 grid(static_cast<unsigned>((B + rows - 1) / rows),
+                  static_cast<unsigned>((N + repro::kThreads - 1) / repro::kThreads));
+  perm_rows_kernel<<<grid, repro::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<const int64_t*>(perm),
+      static_cast<uint32_t*>(out), B, N, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (B, N) u32, perm (N,) int64 → out (B, N) u32; one CTA per row.
+extern "C" int automorphism_eager_launch(const void* x, const void* perm,
+                                         void* out, long long B, int N,
+                                         void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  perm_eager_kernel<<<static_cast<unsigned>(B), repro::kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<const int64_t*>(perm),
+      static_cast<uint32_t*>(out), N);
   return static_cast<int>(cudaGetLastError());
 }

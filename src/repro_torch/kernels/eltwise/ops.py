@@ -66,5 +66,5 @@ def eltwise_cuda(op: str, q: torch.Tensor, *arrays: torch.Tensor) -> torch.Tenso
     err = lib.efu_launch(OPS.index(op), *ptrs, out.data_ptr(), q.data_ptr(),
                          x.numel(), ell, N, native.stream_of(x))
     native.check("eltwise", err, f"eltwise {op}")
-    config.count_launch("eltwise")
+    config.count_launch("eltwise", "efu")
     return out

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("eltwise", "bconv", "automorphism")
+SOURCES = ("eltwise", "bconv", "automorphism", "ntt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,6 +41,12 @@ SIGNATURES = {
     "automorphism": {
         "auto_ks_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "automorphism_multi_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "automorphism_rows_launch": [_P, _P, _P, _LL, _I, _I, _P],
+        "automorphism_eager_launch": [_P, _P, _P, _LL, _I, _P],
+    },
+    "ntt": {
+        "ntt_fwd_launch": [_P] * 10 + [_I] * 6 + [_P],
+        "ntt_inv_launch": [_P] * 14 + [_I] * 6 + [_P],
     },
 }
 

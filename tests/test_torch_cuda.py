@@ -14,11 +14,12 @@ import pytest
 import torch
 
 from repro_torch.core import ckks, const_cache, encoding as enc, keys as K
-from repro_torch.core import params as prm, poly as pl, rns
+from repro_torch.core import ntt as nttm, params as prm, poly as pl, rns
 from repro_torch.kernels import config
 from repro_torch.kernels.automorphism import ops as auto_ops, ref as auto_ref
 from repro_torch.kernels.bconv import ops as bconv_ops, ref as bconv_ref
 from repro_torch.kernels.eltwise import ops as elt_ops
+from repro_torch.kernels.ntt import ops as ntt_ops
 
 pytestmark = pytest.mark.cuda
 N = 1024
@@ -99,6 +100,69 @@ def test_automorphism_multi_kernel(dev, G):
     assert config.launch_counts() == {"automorphism": 1}
     perms = const_cache.device_galois_perm_stack(N, gs, dev)
     assert torch.equal(got, auto_ops.automorphism_multi_plain(x, perms))
+
+
+@pytest.mark.parametrize("logN", [10, 11, 16])
+@pytest.mark.parametrize("split", ["2", "balanced", "N/2"])
+def test_ntt_kernel(dev, logN, split):
+    """Forward and inverse against the plain four-step at the same R, on
+    inputs in [0, 2q), with several leading dims, ℓ = 1 and a strided view."""
+    n = 1 << logN
+    R = {"2": 2, "balanced": nttm.balanced_submodules(n), "N/2": n // 2}[split]
+    basis = tuple(rns.gen_ntt_primes(3, n))
+    gen = torch.Generator(device=dev).manual_seed(logN)
+    q = const_cache.device_q(basis, dev)
+    x = (torch.randint(0, 2 ** 62, (2, 3, n), generator=gen, device=dev,
+                       dtype=torch.int64) % (2 * q)).to(torch.int32)
+    assert bool((x.to(torch.int64) >= q).any())
+    fc = const_cache.device_four_step_consts(basis, n, R, dev)
+    config.reset_launches()
+    got = ntt_ops.ntt_fwd(x, basis, R=R)
+    assert config.kernel_launch_counts() == {"ntt_fwd": 1}
+    assert torch.equal(got, ntt_ops.ntt_plain(x, fc, True))
+    assert torch.equal(got, nttm.ntt(x, const_cache.device_ntt_consts(basis, n, dev)))
+    back = ntt_ops.ntt_inv(got, basis, R=R)
+    assert torch.equal(back, (x.to(torch.int64) % q).to(torch.int32))
+    assert torch.equal(ntt_ops.ntt_inv(x, basis, R=R), ntt_ops.ntt_plain(x, fc, False))
+    top = x[:, -1:, :]                                  # ℓ = 1, strided view
+    assert not top.is_contiguous()
+    fc1 = const_cache.device_four_step_consts(basis[-1:], n, R, dev)
+    for fwd in (True, False):
+        f = ntt_ops.ntt_fwd if fwd else ntt_ops.ntt_inv
+        assert torch.equal(f(top, basis[-1:], R=R), ntt_ops.ntt_plain(top, fc1, fwd))
+
+
+def test_to_ntt_on_the_card_runs_the_kernel(dev):
+    basis = tuple(rns.gen_ntt_primes(3, N))
+    x = pl.to_tensor(rand(basis, (2,), seed=8), dev)
+    p = pl.RnsPoly(x, basis, pl.COEFF)
+    config.reset_launches()
+    fwd = p.to_ntt()
+    back = fwd.to_coeff()
+    rot = fwd.automorphism_by_gelt(pl.galois_elt(1, N))
+    assert config.kernel_launch_counts() == {"ntt_fwd": 1, "ntt_inv": 1,
+                                             "automorphism": 1}
+    c = const_cache.device_ntt_consts(basis, N, dev)
+    assert torch.equal(fwd.data, nttm.ntt(x, c)) and torch.equal(back.data, x)
+    perm = const_cache.device_galois_perm(N, pl.galois_elt(1, N), dev)
+    assert torch.equal(rot.data, fwd.data.index_select(-1, perm))
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4, 32])
+def test_single_permutation_kernels(dev, rows):
+    basis = tuple(rns.gen_ntt_primes(3, N))
+    x = pl.to_tensor(rand(basis, (2,), seed=5), dev)
+    g = pl.galois_elt(-2, N)
+    perm = const_cache.device_galois_perm(N, g, dev)
+    want = x.index_select(-1, perm)
+    config.reset_launches()
+    assert torch.equal(auto_ops.apply_galois(x, N, g, rows_per_cta=rows), want)
+    assert torch.equal(auto_ops.automorphism_eager(x, perm), want)
+    assert torch.equal(auto_ops.automorphism_eager_plain(x, perm), want)
+    assert config.kernel_launch_counts() == {"automorphism": 1,
+                                             "automorphism_eager": 1}
+    np.testing.assert_array_equal(pl.to_numpy(want), auto_ref.automorphism_ref(
+        pl.to_numpy(x), pl.automorphism_perm(N, g)))
 
 
 def test_kernel_rejects_bad_operands(dev):
