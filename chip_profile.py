@@ -38,8 +38,9 @@ sys.path.insert(0, str(ROOT))
 PORT_KERNELS = {"efu_kernel": "efu", "bconv_kernel": "bconvu",
                 "ntt_fwd_col_kernel": "ntt_fwd", "ntt_fwd_row_kernel": "ntt_fwd",
                 "ntt_inv_row_kernel": "ntt_inv", "ntt_inv_col_kernel": "ntt_inv",
-                "auto_ks_kernel": "auto_ks", "multi_perm_kernel": "automorphism_multi",
-                "perm_rows_kernel": "automorphism", "perm_eager_kernel": "automorphism_eager"}
+                "auto_ks_kernel": "auto_ks",
+                "perm_cluster_kernel": "perm_cluster (automorphism_multi / _eager)",
+                "perm_rows_kernel": "automorphism"}
 
 
 def kernel_events(trace_path: Path) -> list[dict]:

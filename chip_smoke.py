@@ -7,13 +7,18 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` and runs, each phase printing one JSON line:
 
 1. device   — the card (fails without CUDA), ``nvidia-smi`` name/power limit;
-2. build    — one ``nvcc`` per kernel source, all at once;
+2. build    — one ``nvcc`` per kernel source, all at once, and ptxas's
+              report (registers, shared memory, spills) of the cluster
+              permutation kernel;
 3. kernels  — each kernel against its plain torch version on the card at the
               shapes the ``paper_full`` pipeline gives it (N = 2¹⁶, L = 48,
               K = 12, dnum = 4): bit-equal, with kernel / plain / library
               times and the memory-or-operations bound; the NTT also against
               the fused plain transform, round trip included, on inputs in
-              [0, 2q);
+              [0, 2q); the multi-permutation and eager kernels also with their
+              cluster size and shared memory per CTA, and the eager kernel
+              on index tables whose reads are local, remote in order, or
+              scattered;
 4. cross    — keygen → encrypt → hmult → rescale → hrot_hoisted([1, 4]) at
               ``test_medium`` on the CPU (plain versions) and on the card
               (kernels), on the fused and on the eager engine: every
@@ -23,7 +28,8 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               plaintext math must be < 1e-2; each op runs with the launch
               counts reset just before it and read just after, and every
               kernel of the path must have launched, the NTT in every op;
-              no plain NTT and no plain gather may run on card data;
+              no plain NTT, plain gather, plain multi-permutation or plain
+              AutoU∘KS may run on card data;
 6. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               and the single permutation at N = 2¹⁶, ℓ = 48, its cache in a
               temporary directory;
@@ -114,13 +120,30 @@ def phase_device():
     return smi
 
 
+def ptxas_report(log: str, kernel: str) -> list[str]:
+    """ptxas's lines (registers, shared memory, spills) for the entry
+    function whose mangled name contains ``kernel``."""
+    lines, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        if inside:
+            lines.append(line.strip())
+    return lines
+
+
 def phase_build():
     from repro_torch.kernels import native
     seconds = native.build()
     for name in native.SOURCES:
         native.lib(name)
+    log = native.library_path("automorphism").with_suffix(".log").read_text()
+    report = ptxas_report(log, "perm_cluster_kernel")
     emit({"phase": "build", "seconds": seconds, "nvcc": native.nvcc(),
-          "libraries": [native.library_path(n).name for n in native.SOURCES]})
+          "libraries": [native.library_path(n).name for n in native.SOURCES],
+          "ptxas_perm_cluster_kernel": report})
+    if not report:
+        raise AssertionError("no ptxas report for perm_cluster_kernel")
 
 
 def phase_kernels(params):
@@ -140,7 +163,7 @@ def phase_kernels(params):
     rows = []
 
     def case(kernel, name, family, source, replaces, cuda_fn, plain_fn, args,
-             nbytes, ops, library=None, extra=None):
+             nbytes, ops, library=None, extra=None, info=None):
         got = cuda_fn(*args)
         want = plain_fn(*args)
         torch.cuda.synchronize()
@@ -155,7 +178,8 @@ def phase_kernels(params):
                "ms": gpu_ms(lambda: cuda_fn(*args)),
                "plain_ms": gpu_ms(lambda: plain_fn(*args), reps=2, rounds=3),
                "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": gpu_ms(lambda: library(*args)) if library else None}
+               "library_ms": gpu_ms(lambda: library(*args)) if library else None,
+               **(info or {})}
         emit({"phase": "kernel", **row})
         if not equal:
             raise AssertionError(f"{name}: kernel differs from its plain version "
@@ -209,6 +233,10 @@ def phase_kernels(params):
          nbytes=(J * Lx * N + 2 * R * J * Lx * N + 2 * R * Lx * N) * 4 + R * N * 8,
          ops=4 * R * J * Lx * N)
 
+    # the cluster plan the multi-permutation and eager wrappers take at N
+    C, S, T = auto_ops.cluster_plan(N)
+    cluster_info = {"cluster": C, "smem_bytes_per_cta": 4 * S}
+
     # multi-permutation: the rotated b-halves, (1, 46, N) → R = 2
     xb = residues(params.q[:L - 2], (1,), N, gen)
     case("automorphism_multi", "automorphism_multi_G1_R2_L46", "automorphism",
@@ -218,7 +246,8 @@ def phase_kernels(params):
          lambda x: auto_ops.automorphism_multi_plain(x, perms), [xb],
          nbytes=(xb.numel() + R * xb.numel()) * 4 + R * N * 8, ops=0,
          library=lambda x: torch.gather(
-             x.expand(R, -1, -1), 2, perms[:, None, :].expand(R, x.shape[1], N)))
+             x.expand(R, -1, -1), 2, perms[:, None, :].expand(R, x.shape[1], N)),
+         info=cluster_info)
 
     # four-step NTT at the default R: hmult's operand and a ModUp extension
     # (forward), ModUp's iNTT of the operand and the stacked relinearization
@@ -269,7 +298,30 @@ def phase_kernels(params):
          lambda x: auto_ops.automorphism_eager_cuda(x, perm),
          lambda x: auto_ops.automorphism_eager_plain(x, perm), [xb],
          nbytes=2 * xb.numel() * 4 + N * 8, ops=0,
-         library=lambda x: x.index_select(-1, perm))
+         library=lambda x: x.index_select(-1, perm),
+         info=cluster_info)
+
+    # what the gathers' pattern costs on the SM-to-SM network: the eager
+    # kernel at its cluster plan on index tables whose reads are all local
+    # and in order, partly remote and in order, or scattered, each with the
+    # share of its reads that falls outside the reading CTA's window
+    k = torch.arange(N, device=dev)
+    tables = {"identity": k, "half_shift": (k + N // 2) % N, "galois": perm,
+              "random": torch.randint(0, N, (N,), generator=gen, device=dev)}
+    chunk = (-(-N // C) + 3) // 4 * 4         # the outputs each CTA writes
+    base = torch.clamp((k // chunk) * T, max=N - S)
+    remote = {name: float(((t - base < 0) | (t - base >= S)).double().mean())
+              for name, t in tables.items()}
+    equal = {name: bool(torch.equal(auto_ops.automorphism_eager_cuda(xb, t),
+                                    auto_ops.automorphism_eager_plain(xb, t)))
+             for name, t in tables.items()}
+    emit({"phase": "cluster_tables", "kernel": "automorphism_eager",
+          "shape": list(xb.shape), "cluster": C, "equal": equal,
+          "remote_share": remote,
+          "ms": {name: gpu_ms(lambda t=t: auto_ops.automorphism_eager_cuda(xb, t))
+                 for name, t in tables.items()}})
+    if not all(equal.values()):
+        raise AssertionError(f"eager kernel differs on an index table: {equal}")
     return rows
 
 
@@ -310,16 +362,18 @@ def _sync_for(device):
 
 @contextlib.contextmanager
 def plain_calls_on_card():
-    """Count the calls of the NTT's and the single permutation's plain
-    versions on CUDA data while the block runs (the main path must make
-    none): the fused plain transform, the plain four-step, the plain gathers."""
+    """Count the calls of the NTT's and the AutoU kernels' plain versions on
+    CUDA data while the block runs (the main path must make none): the fused
+    plain transform, the plain four-step, the plain single, eager and
+    multi-permutation gathers, the plain AutoU∘KS."""
     from repro_torch.core import ntt as nttm
     from repro_torch.kernels.automorphism import ops as auto_ops
     calls = collections.Counter()
     saved = [(mod, name, getattr(mod, name)) for mod, name in (
         (nttm, "ntt"), (nttm, "intt"), (nttm, "four_step_ntt"),
         (nttm, "four_step_intt"), (auto_ops, "automorphism_plain"),
-        (auto_ops, "automorphism_eager_plain"))]
+        (auto_ops, "automorphism_eager_plain"),
+        (auto_ops, "automorphism_multi_plain"), (auto_ops, "auto_ks_plain"))]
 
     def counted(name, fn):
         def wrapper(x, *args, **kwargs):
@@ -492,8 +546,9 @@ def kernel_table(rows, launches):
                           "equal", "shape")},
                       "cases": [{k: c[k] for k in (
                           "name", "shape", "equal", "max_abs_err", "ms",
-                          "plain_ms", "bound_ms", "bound_by", "library_ms")}
-                          for c in cases]})
+                          "plain_ms", "bound_ms", "bound_by", "library_ms",
+                          "cluster", "smem_bytes_per_cta")
+                          if k in c} for c in cases]})
     return table
 
 

@@ -7,6 +7,9 @@ Permutation tables are device-resident int64 index vectors from
 rotation set, staged once per device.  The single-permutation kernel's
 ``rows_per_cta`` resolves through
 :func:`repro_torch.kernels.autotune.best_config` when the caller pins none.
+The multi-permutation and eager kernels are one thread-block-cluster kernel
+that stages each source row once across the cluster's shared memory; how
+many CTAs share a row is :func:`cluster_plan`'s rule.
 """
 from __future__ import annotations
 
@@ -14,6 +17,31 @@ import torch
 
 from repro_torch.core import const_cache
 from repro_torch.kernels import autotune, config, native
+
+#: Bytes of a staged row that one CTA of a cluster may hold (the per-CTA
+#: budget of :func:`cluster_plan`): nearly all of a Hopper CTA's 227 KB, so
+#: that the windows of a two-CTA cluster overlap and most reads are local —
+#: a scattered read of another CTA's shared memory costs several times a
+#: local one on the H100 (PERF.md §6).
+WINDOW_BUDGET = 224 * 1024
+#: The portable thread-block cluster sizes.
+CLUSTER_SIZES = (1, 2, 4, 8)
+
+
+def cluster_plan(N: int) -> tuple[int, int, int]:
+    """(C, S, T) for staging a length-N u32 row across a cluster of C CTAs.
+    CTA r holds the window of S = min(N, budget) words from min(r·T, N - S),
+    T the least power of two ≥ 4 with C·T ≥ N, so CTA w // T holds word w
+    when S ≥ min(T, N); C is the smallest portable cluster size for which
+    that holds within :data:`WINDOW_BUDGET`.  The cluster kernels receive all
+    three numbers."""
+    words = WINDOW_BUDGET // 4
+    for C in CLUSTER_SIZES:
+        T = max(4, 1 << (-(-N // C) - 1).bit_length())
+        if min(T, N) <= words:
+            return C, min(N, words), T
+    raise ValueError(f"a row of N = {N} words does not fit a cluster of "
+                     f"{CLUSTER_SIZES[-1]} CTAs of {WINDOW_BUDGET} bytes")
 
 
 def automorphism(x: torch.Tensor, perm: torch.Tensor,
@@ -52,6 +80,7 @@ def automorphism_cuda(x: torch.Tensor, perm: torch.Tensor,
     """Launch the batched single-permutation kernel (``csrc/automorphism.cu``)."""
     N = x.shape[-1]
     _check_perm(x, perm)
+    _require_words(x, perm)
     B = x.numel() // N if N else 0
     rows = config.effective_block(max(B, 1), rows_per_cta)
     out = torch.empty_like(x)
@@ -64,7 +93,7 @@ def automorphism_cuda(x: torch.Tensor, perm: torch.Tensor,
 
 
 def automorphism_eager(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """(P, ℓ, N) → out[p, i, k] = x[p, i, perm[k]], one CTA per (poly, limb)."""
+    """(P, ℓ, N) → out[p, i, k] = x[p, i, perm[k]], one cluster per (poly, limb)."""
     if native.on_cuda(x, perm):
         return automorphism_eager_cuda(x.contiguous(), perm)
     return automorphism_eager_plain(x, perm)
@@ -72,31 +101,42 @@ def automorphism_eager(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
 
 def automorphism_eager_plain(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """Plain version of the eager kernel: one gather per (poly, limb) row."""
+    _check_eager_shapes(x, perm)
     P, ell, _ = x.shape
     return torch.stack([torch.stack([x[p, i].index_select(0, perm)
                                      for i in range(ell)]) for p in range(P)])
 
 
 def automorphism_eager_cuda(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Launch the eager single-permutation kernel (``csrc/automorphism.cu``)."""
-    if x.dim() != 3:
-        raise ValueError(f"eager automorphism takes (P, ℓ, N), got {tuple(x.shape)}")
-    _check_perm(x, perm)
+    """Launch the cluster permutation kernel (``csrc/automorphism.cu``) with
+    one cluster per (poly, limb) row."""
+    _check_eager_shapes(x, perm)
+    _require_words(x, perm)
     P, ell, N = x.shape
     out = torch.empty_like(x)
     err = native.lib("automorphism").automorphism_eager_launch(
         x.data_ptr(), perm.data_ptr(), out.data_ptr(), P * ell, N,
-        native.stream_of(x))
+        *cluster_plan(N), native.stream_of(x))
     native.check("automorphism", err, "automorphism_eager")
     config.count_launch("automorphism", "automorphism_eager")
     return out
 
 
+def _check_eager_shapes(x: torch.Tensor, perm: torch.Tensor) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"eager automorphism takes (P, ℓ, N), got {tuple(x.shape)}")
+    _check_perm(x, perm)
+
+
 def _check_perm(x: torch.Tensor, perm: torch.Tensor) -> None:
-    native.require({"x": x}, torch.int32, x.device)
-    native.require({"perm": perm}, torch.int64, x.device)
     if perm.shape != (x.shape[-1],):
         raise ValueError(f"perm {tuple(perm.shape)} for N = {x.shape[-1]}")
+
+
+def _require_words(x: torch.Tensor, perm: torch.Tensor) -> None:
+    """A kernel's operands: int32 words and an int64 index table on x's device."""
+    native.require({"x": x}, torch.int32, x.device)
+    native.require({"perm": perm}, torch.int64, x.device)
 
 
 def apply_galois_many(x: torch.Tensor, N: int, gs: tuple) -> torch.Tensor:
@@ -111,25 +151,24 @@ def apply_galois_many(x: torch.Tensor, N: int, gs: tuple) -> torch.Tensor:
 
 def automorphism_multi_plain(x: torch.Tensor, perms: torch.Tensor) -> torch.Tensor:
     """out[r, i, k] = x[r if G == R else 0, i, perms[r, k]]."""
+    _check_multi_shapes(x, perms)
     G, R = x.shape[0], perms.shape[0]
-    _check_batch(G, R)
     return torch.stack([x[r if G == R else 0].index_select(-1, perms[r])
                         for r in range(R)])
 
 
 def automorphism_multi_cuda(x: torch.Tensor, perms: torch.Tensor) -> torch.Tensor:
-    """Launch the multi-permutation kernel (``csrc/automorphism.cu``)."""
+    """Launch the cluster permutation kernel (``csrc/automorphism.cu``): one
+    cluster per limb looping over the R rotations when G = 1, one per
+    (rotation, limb) when G = R."""
+    _check_multi_shapes(x, perms)
     G, L, N = x.shape
     R = perms.shape[0]
-    _check_batch(G, R)
-    native.require({"x": x}, torch.int32, x.device)
-    native.require({"perms": perms}, torch.int64, x.device)
-    if perms.shape != (R, N):
-        raise ValueError(f"perms {tuple(perms.shape)} for N = {N}")
+    _require_words(x, perms)
     out = torch.empty((R, L, N), dtype=torch.int32, device=x.device)
     err = native.lib("automorphism").automorphism_multi_launch(
         x.data_ptr(), perms.data_ptr(), out.data_ptr(), G, R, L, N,
-        native.stream_of(x))
+        *cluster_plan(N), native.stream_of(x))
     native.check("automorphism", err, "automorphism_multi")
     config.count_launch("automorphism", "automorphism_multi")
     return out
@@ -188,6 +227,13 @@ def auto_ks_cuda(exts, evk_a, evk_b, perms, q) -> torch.Tensor:
     native.check("automorphism", err, "auto_ks")
     config.count_launch("auto_ks", "auto_ks")
     return out
+
+
+def _check_multi_shapes(x: torch.Tensor, perms: torch.Tensor) -> None:
+    if x.dim() != 3 or perms.dim() != 2 or perms.shape[1] != x.shape[-1]:
+        raise ValueError(f"multi-permutation takes x (G, L, N) and perms (R, N), "
+                         f"got {tuple(x.shape)} and {tuple(perms.shape)}")
+    _check_batch(x.shape[0], perms.shape[0])
 
 
 def _check_batch(G: int, R: int) -> None:

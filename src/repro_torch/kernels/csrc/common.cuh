@@ -9,18 +9,131 @@
 // running sum (< 2^30) fit a u64 without overflow: accumulators add raw
 // products and reduce every kReduceEvery terms.  That keeps a sum exact for
 // any number of terms, as the reference's hi16/lo16 column sum is.
+//
+// A limb row larger than one CTA's shared memory (N = 2^16 u32 words is
+// 256 KiB) is staged across a thread-block cluster: stage_cluster_row puts
+// one window of it in each CTA's shared memory, cluster_word reads any word
+// of it from any CTA of the cluster (distributed shared memory), and
+// prepare_cluster_launch readies a kernel for such a launch.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace repro {
 
 constexpr int kThreads = 256;
 constexpr int kReduceEvery = 15;
+constexpr int kMaxSmemPerCta = 227 * 1024;     // Hopper: 232,448 bytes
 
 inline unsigned grid_for(long long total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
+}
+
+// A row of N u32 words staged across a cluster of C CTAs, one window of it
+// in each CTA's shared memory: CTA r holds words [base_r, base_r + S) with
+// base_r = min(r·T, N - S), T = 2^stride_log2, T·C ≥ N and S ≥ min(T, N).
+// Window r then covers [r·T, (r+1)·T) ∩ [0, N), so word w lies in the window
+// of CTA w >> stride_log2; with S larger than T the windows overlap, and a
+// CTA finds most words in its own.
+struct ClusterRow {
+  uint32_t* smem;
+  int N, S, stride_log2, base;   // base: this CTA's window start
+};
+
+// Stage this CTA's window of `src`, then sync the cluster, after which any
+// CTA may read any word through cluster_word.  When `vec` (N and S multiples
+// of 4, `src` 16-byte aligned) one thread hands the window to the TMA in
+// kBulkBytes pieces that complete on an mbarrier: the copy takes no
+// registers and no L1, which a 224 KiB window leaves little of.  Otherwise
+// the threads copy it word by word.
+constexpr int kBulkBytes = 16 * 1024;
+
+__device__ __forceinline__ ClusterRow stage_cluster_row(cg::cluster_group& cluster,
+                                                        uint32_t* smem,
+                                                        const uint32_t* __restrict__ src,
+                                                        int N, int S,
+                                                        int stride_log2, int vec) {
+  __shared__ uint64_t staged;                    // the window's mbarrier
+  const int base =
+      min(static_cast<int>(cluster.block_rank()) << stride_log2, N - S);
+  src += base;
+  if (vec) {
+    const uint32_t bar = static_cast<uint32_t>(__cvta_generic_to_shared(&staged));
+    if (threadIdx.x == 0) {
+      const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+      const int bytes = S * 4;
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(bar), "r"(bytes) : "memory");
+      for (int off = 0; off < bytes; off += kBulkBytes)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];"
+            :: "r"(dst + off), "l"(reinterpret_cast<const char*>(src) + off),
+               "r"(min(kBulkBytes, bytes - off)), "r"(bar) : "memory");
+    }
+    __syncthreads();                             // the mbarrier is initialised
+    uint32_t done = 0;
+    while (!done)
+      asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;"
+                   " selp.u32 %0, 1, 0, p; }"
+                   : "=r"(done) : "r"(bar) : "memory");
+  } else {
+    for (int v = threadIdx.x; v < S; v += blockDim.x) smem[v] = __ldg(src + v);
+  }
+  cluster.sync();
+  return {smem, N, S, stride_log2, base};
+}
+
+// Word `src` of the staged row: from this CTA's own window where it holds
+// it, else through distributed shared memory from CTA src >> stride_log2.
+__device__ __forceinline__ uint32_t cluster_word(cg::cluster_group& cluster,
+                                                 const ClusterRow& row,
+                                                 long long src) {
+  const uint32_t w = static_cast<uint32_t>(src);
+  const uint32_t local = w - static_cast<uint32_t>(row.base);
+  if (local < static_cast<uint32_t>(row.S)) return row.smem[local];
+  const int owner = static_cast<int>(w >> row.stride_log2);
+  const int base = min(owner << row.stride_log2, row.N - row.S);
+  return *cluster.map_shared_rank(row.smem + (w - base), owner);
+}
+
+// What a kernel's cluster launches have set up so far: its dynamic
+// shared-memory limit, and per cluster size the largest shared memory per CTA
+// at which a cluster was found to fit on the card.
+struct ClusterLaunchState {
+  int smem_allowed = 48 * 1024;
+  int resident_smem[9] = {};
+};
+
+// Ready `kernel` for the launch `cfg` (clusters of C CTAs, `smem` dynamic
+// bytes each): raise its shared-memory limit where needed and check, once per
+// (C, smem), that at least one such cluster can be resident.  The state
+// changes only outside stream capture in practice: the first launch of a plan
+// is an ordinary one.  Returns the CUDA error, cudaErrorInvalidConfiguration
+// when no cluster fits.
+template <typename Kernel>
+cudaError_t prepare_cluster_launch(Kernel kernel, const cudaLaunchConfig_t& cfg,
+                                   ClusterLaunchState& state, int C, int smem) {
+  if (smem > state.smem_allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    state.smem_allowed = smem;
+  }
+  if (smem > state.resident_smem[C]) {
+    int clusters = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    state.resident_smem[C] = smem;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace repro

@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a plain
 C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``): no
 PyTorch headers, so a build takes seconds.  Libraries land in ``build/kernels``
 at the repository root, named by a hash of their sources, so an edited kernel
-is rebuilt and an unchanged one is reused.  :func:`build` compiles every
-missing library at once, one ``nvcc`` process per source; :func:`lib` builds on
-first use.  Nothing is compiled when a module is imported.
+is rebuilt and an unchanged one is reused; beside each lies the compiler's
+output (``.log``: ptxas's registers, shared memory and spills per kernel).
+:func:`build` compiles every missing library at once, one ``nvcc`` process per
+source; :func:`lib` builds on first use.  Nothing is compiled when a module is
+imported.
 
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code, so a refused launch never passes silently.
@@ -27,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("eltwise", "bconv", "automorphism", "ntt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of each library: name → argtypes (all return int).
@@ -40,9 +42,9 @@ SIGNATURES = {
     },
     "automorphism": {
         "auto_ks_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "automorphism_multi_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "automorphism_multi_launch": [_P, _P, _P] + [_I] * 7 + [_P],
         "automorphism_rows_launch": [_P, _P, _P, _LL, _I, _I, _P],
-        "automorphism_eager_launch": [_P, _P, _P, _LL, _I, _P],
+        "automorphism_eager_launch": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     },
     "ntt": {
         "ntt_fwd_launch": [_P] * 10 + [_I] * 6 + [_P],
@@ -96,6 +98,7 @@ def build(names: tuple[str, ...] = SOURCES) -> float:
         if proc.returncode != 0:
             failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
         else:
+            so.with_suffix(".log").write_text(log)
             os.replace(tmp, so)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))

@@ -90,16 +90,68 @@ def test_auto_ks_kernel(dev, G):
     np.testing.assert_array_equal(pl.to_numpy(got), want)
 
 
-@pytest.mark.parametrize("G", [1, 2])
-def test_automorphism_multi_kernel(dev, G):
-    basis = tuple(rns.gen_ntt_primes(3, N))
-    gs = (pl.galois_elt(1, N), pl.galois_elt(4, N))
-    x = pl.to_tensor(rand(basis, (G,), seed=4), dev)
+# Row lengths of the cluster permutation kernels: a cluster of one CTA holds
+# the row (2¹⁰, and 3·2¹⁴ and 40001, which are not powers of two: the first
+# takes the 16-byte path, the second the word-by-word one), a cluster of two
+# with overlapping windows does (2¹⁶).
+PERM_NS = [1 << 10, 1 << 16, 3 << 14, 40001]
+PERM_CASES = [(n, kind) for n in PERM_NS for kind in ("galois", "random")
+              if kind == "random" or n & (n - 1) == 0]
+
+
+def perm_table(n, kind, R, seed):
+    """(R, n) int64 index rows: Galois tables of rotations 1, 4, -2, or
+    uniform indices in [0, n) with repeats."""
+    if kind == "galois":
+        return np.stack([pl.automorphism_perm(n, pl.galois_elt(r, n))
+                         for r in (1, 4, -2)[:R]]).astype(np.int64)
+    return np.random.default_rng(seed).integers(0, n, (R, n), dtype=np.int64)
+
+
+def words(shape, seed):
+    """u32 residue-sized words (< 2³⁰) of any shape, as int32 bits."""
+    return np.random.default_rng(seed).integers(0, 1 << 30, shape).astype(np.uint32)
+
+
+@pytest.mark.parametrize("L", [1, 46])
+@pytest.mark.parametrize("G_is_R", [False, True])
+@pytest.mark.parametrize("R", [1, 2, 3])
+@pytest.mark.parametrize("n,kind", PERM_CASES)
+def test_automorphism_multi_kernel(dev, n, kind, R, G_is_R, L):
+    G = R if G_is_R else 1
+    x = words((G, L, n), seed=4)
+    perms = perm_table(n, kind, R, seed=5)
+    tx, tp = pl.to_tensor(x, dev), torch.from_numpy(perms).to(dev)
     config.reset_launches()
-    got = auto_ops.apply_galois_many(x, N, gs)
-    assert config.launch_counts() == {"automorphism": 1}
-    perms = const_cache.device_galois_perm_stack(N, gs, dev)
-    assert torch.equal(got, auto_ops.automorphism_multi_plain(x, perms))
+    got = auto_ops.automorphism_multi_cuda(tx, tp)
+    assert config.kernel_launch_counts() == {"automorphism_multi": 1}
+    assert torch.equal(got, auto_ops.automorphism_multi_plain(tx, tp))
+    want = np.stack([auto_ref.automorphism_ref(x[r if G == R else 0], perms[r])
+                     for r in range(R)])
+    np.testing.assert_array_equal(pl.to_numpy(got), want)
+    if kind == "galois" and L == 1:                 # the hoisting entry point
+        gs = tuple(pl.galois_elt(r, n) for r in (1, 4, -2)[:R])
+        config.reset_launches()
+        assert torch.equal(auto_ops.apply_galois_many(tx, n, gs), got)
+        assert config.launch_counts() == {"automorphism": 1}
+
+
+@pytest.mark.parametrize("n,C", [(1 << 10, 1), (40001, 1), (60001, 2),
+                                 (1 << 16, 2), (100000, 4), (1 << 17, 4),
+                                 (1 << 18, 8)])
+def test_every_cluster_size_gives_the_same_permutation(dev, n, C):
+    """Both entry points at row lengths for which cluster_plan picks each
+    cluster size (60001: two CTAs, the last window clamped to the row's end,
+    word by word)."""
+    assert auto_ops.cluster_plan(n)[0] == C
+    x = pl.to_tensor(words((2, 3, n), seed=6), dev)
+    perms = torch.from_numpy(perm_table(n, "random", 2, seed=7)).to(dev)
+    assert torch.equal(auto_ops.automorphism_multi_cuda(x, perms),
+                       auto_ops.automorphism_multi_plain(x, perms))
+    assert torch.equal(auto_ops.automorphism_multi_cuda(x[:1], perms),
+                       auto_ops.automorphism_multi_plain(x[:1], perms))
+    assert torch.equal(auto_ops.automorphism_eager_cuda(x, perms[0]),
+                       auto_ops.automorphism_eager_plain(x, perms[0]))
 
 
 @pytest.mark.parametrize("logN", [10, 11, 16])
@@ -148,21 +200,26 @@ def test_to_ntt_on_the_card_runs_the_kernel(dev):
     assert torch.equal(rot.data, fwd.data.index_select(-1, perm))
 
 
+@pytest.mark.parametrize("L", [1, 46])
+@pytest.mark.parametrize("n,kind", PERM_CASES)
 @pytest.mark.parametrize("rows", [1, 3, 4, 32])
-def test_single_permutation_kernels(dev, rows):
-    basis = tuple(rns.gen_ntt_primes(3, N))
-    x = pl.to_tensor(rand(basis, (2,), seed=5), dev)
-    g = pl.galois_elt(-2, N)
-    perm = const_cache.device_galois_perm(N, g, dev)
-    want = x.index_select(-1, perm)
+def test_single_permutation_kernels(dev, rows, n, kind, L):
+    """The batched and the eager (cluster) kernels on (2, L, n) rows."""
+    x = words((2, L, n), seed=5)
+    perm = perm_table(n, kind, 3, seed=8)[-1]         # Galois: rotation -2
+    tx, tp = pl.to_tensor(x, dev), torch.from_numpy(perm).to(dev)
+    want = tx.index_select(-1, tp)
     config.reset_launches()
-    assert torch.equal(auto_ops.apply_galois(x, N, g, rows_per_cta=rows), want)
-    assert torch.equal(auto_ops.automorphism_eager(x, perm), want)
-    assert torch.equal(auto_ops.automorphism_eager_plain(x, perm), want)
+    assert torch.equal(auto_ops.automorphism(tx, tp, rows_per_cta=rows), want)
+    assert torch.equal(auto_ops.automorphism_eager(tx, tp), want)
+    assert torch.equal(auto_ops.automorphism_eager_plain(tx, tp), want)
     assert config.kernel_launch_counts() == {"automorphism": 1,
                                              "automorphism_eager": 1}
-    np.testing.assert_array_equal(pl.to_numpy(want), auto_ref.automorphism_ref(
-        pl.to_numpy(x), pl.automorphism_perm(N, g)))
+    np.testing.assert_array_equal(pl.to_numpy(want),
+                                  auto_ref.automorphism_ref(x, perm))
+    if kind == "galois":
+        g = pl.galois_elt(-2, n)
+        assert torch.equal(auto_ops.apply_galois(tx, n, g, rows_per_cta=rows), want)
 
 
 def test_kernel_rejects_bad_operands(dev):
