@@ -36,8 +36,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 PORT_KERNELS = {"efu_kernel": "efu", "bconv_kernel": "bconvu",
-                "ntt_fwd_col_kernel": "ntt_fwd", "ntt_fwd_row_kernel": "ntt_fwd",
-                "ntt_inv_row_kernel": "ntt_inv", "ntt_inv_col_kernel": "ntt_inv",
+                "ntt_fwd_kernel": "ntt_fwd", "ntt_inv_kernel": "ntt_inv",
                 "auto_ks_kernel": "auto_ks",
                 "perm_cluster_kernel": "perm_cluster (automorphism_multi / _eager)",
                 "perm_rows_kernel": "automorphism"}

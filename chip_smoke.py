@@ -9,16 +9,18 @@ with ``nvcc`` and runs, each phase printing one JSON line:
 1. device   — the card (fails without CUDA), ``nvidia-smi`` name/power limit;
 2. build    — one ``nvcc`` per kernel source, all at once, and ptxas's
               report (registers, shared memory, spills) of the cluster
-              permutation kernel;
+              permutation kernel and of the one-pass NTT kernels;
 3. kernels  — each kernel against its plain torch version on the card at the
               shapes the ``paper_full`` pipeline gives it (N = 2¹⁶, L = 48,
               K = 12, dnum = 4): bit-equal, with kernel / plain / library
               times and the memory-or-operations bound; the NTT also against
               the fused plain transform, round trip included, on inputs in
-              [0, 2q); the multi-permutation and eager kernels also with their
-              cluster size and shared memory per CTA, and the eager kernel
-              on index tables whose reads are local, remote in order, or
-              scattered;
+              [0, 2q), and at every cluster size its split allows (one launch
+              per transform, each limb held in a thread-block cluster's
+              shared memory); the NTT, multi-permutation and eager kernels
+              also with their cluster size and shared memory per CTA, and the
+              eager kernel on index tables whose reads are local, remote in
+              order, or scattered;
 4. cross    — keygen → encrypt → hmult → rescale → hrot_hoisted([1, 4]) at
               ``test_medium`` on the CPU (plain versions) and on the card
               (kernels), on the fused and on the eager engine: every
@@ -31,8 +33,11 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               no plain NTT, plain gather, plain multi-permutation or plain
               AutoU∘KS may run on card data;
 6. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
-              and the single permutation at N = 2¹⁶, ℓ = 48, its cache in a
-              temporary directory;
+              (R × cluster size) and the single permutation at N = 2¹⁶,
+              ℓ = 48, its cache in a temporary directory;
+7. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
+              (every kernel against its plain version at small shapes, the
+              NTT at every cluster size of every split it is tested at);
 
 then the kernel table as one JSON line, and the result line
 ``{"ok": true, "device": {...}}`` last.  Any failure raises: the script exits
@@ -43,6 +48,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -132,18 +138,28 @@ def ptxas_report(log: str, kernel: str) -> list[str]:
     return lines
 
 
+# Kernels whose ptxas report (registers, spills, shared memory) the build
+# phase prints: (source, entry-function name); the NTT kernels are templates
+# on the cluster size, so each reports one entry per size.
+PTXAS_KERNELS = (("automorphism", "perm_cluster_kernel"), ("ntt", "ntt_fwd_kernel"),
+                 ("ntt", "ntt_inv_kernel"))
+
+
 def phase_build():
     from repro_torch.kernels import native
     seconds = native.build()
     for name in native.SOURCES:
         native.lib(name)
-    log = native.library_path("automorphism").with_suffix(".log").read_text()
-    report = ptxas_report(log, "perm_cluster_kernel")
+    reports = {}
+    for source, kernel in PTXAS_KERNELS:
+        log = native.library_path(source).with_suffix(".log").read_text()
+        reports[f"ptxas_{kernel}"] = ptxas_report(log, kernel)
     emit({"phase": "build", "seconds": seconds, "nvcc": native.nvcc(),
           "libraries": [native.library_path(n).name for n in native.SOURCES],
-          "ptxas_perm_cluster_kernel": report})
-    if not report:
-        raise AssertionError("no ptxas report for perm_cluster_kernel")
+          **reports})
+    missing = [k for k, lines in reports.items() if not lines]
+    if missing:
+        raise AssertionError(f"no ptxas report for {missing}")
 
 
 def phase_kernels(params):
@@ -249,9 +265,10 @@ def phase_kernels(params):
              x.expand(R, -1, -1), 2, perms[:, None, :].expand(R, x.shape[1], N)),
          info=cluster_info)
 
-    # four-step NTT at the default R: hmult's operand and a ModUp extension
-    # (forward), ModUp's iNTT of the operand and the stacked relinearization
-    # ModDown's P-part (inverse); inputs in [0, 2q)
+    # four-step NTT at the default R and cluster size: hmult's operand and a
+    # ModUp extension (forward), ModUp's iNTT of the operand and the stacked
+    # relinearization ModDown's P-part (inverse); inputs in [0, 2q); each also
+    # bit-equal and timed at every other cluster size the split allows
     for fwd, name, basis, lead in (
             (True, "ntt_fwd_1x48", params.q[:L], (1,)),
             (True, "ntt_fwd_modup_ext_1x48", params.q[12:L] + params.p, (1,)),
@@ -262,26 +279,36 @@ def phase_kernels(params):
         xl = (residues(basis, lead, N, gen).to(torch.int64)
               + qb * torch.randint(0, 2, (*lead, ell, N), generator=gen,
                                    device=dev)).to(torch.int32)    # [0, 2q)
-        split, tile = ntt_ops.resolve(xl, None, None)
+        split, cluster = ntt_ops.resolve(xl, None, None)
         fc = const_cache.device_four_step_consts(basis, N, split, dev)
         nc = const_cache.device_ntt_consts(basis, N, dev)
         fused = (nttm.ntt if fwd else nttm.intt)(xl, nc)
         back = ntt_ops.ntt_inv if fwd else ntt_ops.ntt_fwd
         reduced = (xl.to(torch.int64) % qb).to(torch.int32)
 
-        def extra(got, fused=fused, back=back, basis=basis, reduced=reduced):
+        sizes = [c for c in ntt_ops.CLUSTER_SIZES if ntt_ops.cluster_ok(N, split, c)]
+        run = {c: (lambda x, fc=fc, fwd=fwd, c=c: ntt_ops.ntt_cuda(x, fc, fwd, c))
+               for c in sizes}
+
+        def extra(got, fused=fused, back=back, basis=basis, reduced=reduced,
+                  run=run, xl=xl):
             return {"equal_fused": torch.equal(got, fused),
-                    "round_trip": torch.equal(back(got, basis), reduced)}
+                    "round_trip": torch.equal(back(got, basis), reduced),
+                    "equal_every_cluster": all(torch.equal(f(xl), got)
+                                               for f in run.values())}
         B = xl.numel() // N
         # bytes: data in and out, twiddles and stage tables with companions;
         # operations: per limb (N/2)·log₂N butterflies and N twiddle products
         case("ntt_fwd" if fwd else "ntt_inv", name, "ntt", src + "ntt.cu",
-             "src/repro/kernels/ntt/kernel.py:156",
-             lambda x, fc=fc, fwd=fwd, tile=tile: ntt_ops.ntt_cuda(x, fc, fwd, tile),
+             "src/repro/kernels/ntt/kernel.py:156", run[cluster],
              lambda x, fc=fc, fwd=fwd: ntt_ops.ntt_plain(x, fc, fwd), [xl],
              nbytes=(2 * B * N + 2 * ell * (N + split + N // split)) * 4,
              ops=B * (N // 2 * (N.bit_length() - 1) + N),
-             extra=extra)
+             extra=extra,
+             info={"R": split, "cluster": cluster,
+                   "smem_bytes_per_cta": ntt_ops.smem_bytes_per_cta(N, split, cluster),
+                   "ms_by_cluster": {c: gpu_ms(lambda f=f: f(xl))
+                                     for c, f in run.items()}})
 
     # single permutation: φ_g of a stacked pair (2, 46, N); eager: (1, 46, N)
     perm = const_cache.device_galois_perm(N, gs[0], dev)
@@ -531,6 +558,42 @@ def phase_autotune(params, cache_file):
         raise AssertionError(f"autotune recorded {sorted(winners)}")
 
 
+def phase_card_tests():
+    """The card tests (``tests/test_torch_cuda.py``, marker ``cuda``) in a
+    subprocess with a private autotune cache; fails if any fails."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.pathsep.join(filter(None, (str(ROOT / "src"),
+                                             os.environ.get("PYTHONPATH"))))
+        env = dict(os.environ, PYTHONPATH=path,
+                   REPRO_AUTOTUNE_CACHE=str(Path(tmp) / "autotune.json"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "-p",
+             "no:cacheprovider", str(ROOT / "tests" / "test_torch_cuda.py")],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    emit({"phase": "card_tests", "rc": proc.returncode, "summary": summary,
+          "seconds": time.perf_counter() - t0})
+    if proc.returncode != 0:
+        print(proc.stdout[-8000:], proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"card tests failed: {summary}")
+
+
+# How the kernels that were redesigned for Hopper work (the kernel table
+# carries it beside their numbers).
+DESIGN = {
+    "ntt_fwd": "one launch per transform, no global scratch: each limb held "
+               "in the shared memory of a thread-block cluster (R/cluster whole "
+               "rows per CTA), stages across CTAs through distributed shared "
+               "memory",
+    "automorphism_multi": "perm_cluster_kernel: each limb row staged once by "
+                          "the TMA across a thread-block cluster",
+}
+DESIGN["ntt_inv"] = DESIGN["ntt_fwd"]
+DESIGN["automorphism_eager"] = DESIGN["automorphism_multi"]
+
+
 def kernel_table(rows, launches):
     """One entry per kernel: its first case's numbers, the main path's
     launches of that kernel, and every measured case."""
@@ -540,6 +603,7 @@ def kernel_table(rows, launches):
         main_case = cases[0]
         table.append({"name": kernel, "launches": launches.get(kernel, 0),
                       "on_main_path": kernel in FUSED_PATH_KERNELS + EAGER_PATH_KERNELS,
+                      **({"design": DESIGN[kernel]} if kernel in DESIGN else {}),
                       **{k: main_case[k] for k in (
                           "route", "source", "replaces", "max_abs_err", "ms",
                           "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -547,7 +611,7 @@ def kernel_table(rows, launches):
                       "cases": [{k: c[k] for k in (
                           "name", "shape", "equal", "max_abs_err", "ms",
                           "plain_ms", "bound_ms", "bound_by", "library_ms",
-                          "cluster", "smem_bytes_per_cta")
+                          "R", "cluster", "smem_bytes_per_cta", "ms_by_cluster")
                           if k in c} for c in cases]})
     return table
 
@@ -570,6 +634,7 @@ def main() -> int:
         launches = phase_pipeline(paper)
         phase_autotune(paper, cache_file)
         autotune.set_cache_path(None)
+    phase_card_tests()
     table = kernel_table(rows, launches)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

@@ -4,7 +4,8 @@ The counterpart of the reference's ``repro.kernels.autotune``, with knobs that
 the Hopper kernels really take:
 
 * ``ntt``: ``R``, the paper's recomposition knob (the R×C four-step split),
-  and ``tile``, the width TC of the column pass's R×TC shared-memory tile;
+  and ``cluster``, the CTAs of the thread-block cluster that holds one limb
+  (``kernels/ntt/ops.py:cluster_ok`` says which sizes a split allows);
 * ``automorphism``: ``rows_per_cta``, the rows of the single-permutation
   kernel's CTA that share one read of the index vector;
 * ``eltwise``, ``bconv``, ``auto_ks``: fixed launches today, so a one-entry
@@ -16,7 +17,8 @@ device (CUDA events on a card) and records the winner in a JSON cache keyed
 ``family/N=../L=../backend`` (path: ``REPRO_AUTOTUNE_CACHE``, else
 ``~/.cache/repro-cifher-torch/autotune.json``); :func:`best_config` is the
 lookup every wrapper makes when its caller pins no knob — a cold cache gives
-:data:`DEFAULTS`, and for ``ntt`` the balanced R = √N.
+:data:`DEFAULTS`, and for ``ntt`` the balanced R = √N (the NTT wrapper then
+takes its cluster size from ``ntt.ops.cluster_plan``).
 
 CLI, on the card::
 
@@ -43,9 +45,9 @@ CACHE_VERSION = 1
 SMEM_MAX = 232_448          # bytes of shared memory a CTA may opt into (H100)
 
 # Cold-cache launch configs.  The NTT's R resolves to balanced_submodules(N)
-# in best_config; a wrapper clamps ``tile`` to what the shape allows.
+# in best_config, its cluster size to ntt.ops.cluster_plan in the wrapper.
 DEFAULTS: dict[str, dict] = {
-    "ntt": {"tile": 32},
+    "ntt": {},
     "automorphism": {"rows_per_cta": 4},
     "eltwise": {},
     "bconv": {},
@@ -158,17 +160,13 @@ def _ntt_Rs(N: int) -> list[int]:
     return [R for R in _pow2s(lo, hi) if N // R >= 2]
 
 
-def ntt_tile_ok(N: int, R: int, tile: int) -> bool:
-    """The column pass's R×tile u32 tile divides the rows and fits a CTA."""
-    return tile <= N // R and R * tile * 4 <= SMEM_MAX
-
-
 def candidates(family: str, N: int, ell: int) -> list[dict]:
     """The deterministic sweep grid for one (family, N, ℓ) shape: sorted by
     knob values, duplicate-free, every entry valid."""
     if family == "ntt":
-        return [{"R": R, "tile": t} for t in (16, 32, 64) for R in _ntt_Rs(N)
-                if ntt_tile_ok(N, R, t)]
+        from repro_torch.kernels.ntt import ops as ntt_ops
+        return [{"R": R, "cluster": c} for c in ntt_ops.CLUSTER_SIZES
+                for R in _ntt_Rs(N) if ntt_ops.cluster_ok(N, R, c)]
     if family == "automorphism":
         return [{"rows_per_cta": w} for w in (1, 2, 4, 8, 16, 32)
                 if w <= max(2 * ell, 1)]
@@ -191,7 +189,8 @@ def _build_runner(family: str, N: int, ell: int, device):
     if family == "ntt":
         from repro_torch.kernels.ntt import ops as ntt_ops
         x = _residues(basis, (2,), N, 0, device)
-        return lambda cfg: ntt_ops.ntt_fwd(x, basis, R=cfg["R"], tile=cfg["tile"])
+        return lambda cfg: ntt_ops.ntt_fwd(x, basis, R=cfg["R"],
+                                           cluster=cfg["cluster"])
     if family == "automorphism":
         from repro_torch.kernels.automorphism import ops as auto_ops
         x = _residues(basis, (2,), N, 4, device)

@@ -1,263 +1,478 @@
 // Four-step negacyclic NTT and iNTT of (B, N) u32 residues, one prime per
-// row (row b uses limb b mod ell of the stacked tables).
+// row (row b uses limb b mod ell of the stacked tables), each in one launch.
 //
-// Replaces the TPU kernel src/repro/kernels/ntt/kernel.py:ntt_pallas (bodies
-// _fwd_body / _inv_body with _col_ntt, _col_intt, _row_dft).  The same R x C
-// dataflow, with A[n1, n2] = a[C*n1 + n2]:
+// Replaces the TPU kernel src/repro/kernels/ntt/kernel.py:156 ntt_pallas
+// (bodies _fwd_body / _inv_body with _col_ntt, _col_intt, _row_dft).  The
+// same R x C dataflow, with A[n1, n2] = a[C*n1 + n2]:
 //
-//   forward: R-point negacyclic column NTT (root psi^C, lazy fused CT, output
-//            bit-reversed -> natural k1), times the twiddle psi^{(2k1+1)n2},
-//            C-point cyclic row DFT (root psi^{2R}, lazy DIT), one [0,2q) ->
-//            [0,q) correction, out[k1 + R*k2] = B[k1, k2];
+//   forward: R-point negacyclic column NTT (root psi^C), times the twiddle
+//            psi^{(2k1+1)n2}, C-point cyclic row DFT (root psi^{2R}), one
+//            [0,2q) -> [0,q) correction, out[k1 + R*k2] = B[k1, k2];
 //   inverse: the transposed load B[k1, k2] = x[k1 + R*k2], the inverse row
-//            DFT, times C^-1 and the inverse twiddle, the column iNTT (lazy
-//            GS) whose final R^-1 Shoup multiply fully reduces.
+//            DFT, times C^-1 and the inverse twiddle, the column iNTT, R^-1
+//            and one full reduction.
 //
 // Butterflies are Harvey's lazy [0, 2q) Shoup butterflies of the reference
-// (u32: __umulhi for the Shoup quotient; lazy values < 2q < 2^31 and
-// a + b*w before its conditional subtract < 4q < 2^32).  Inputs may be any
-// value below 2q; outputs are canonical [0, q), so every R gives the fused
-// transform's bytes.
+// (u32: __umulhi for the Shoup quotient; lazy values < 2q < 2^31, sums
+// < 4q < 2^32 folded back by one unsigned min).  Inputs may be any value
+// below 2q; outputs are canonical [0, q), so every R and every cluster size
+// gives the fused transform's bytes.  The tables are those of the plain
+// four-step (u32 bit patterns in int32 tensors): col_w/col_ws (ell, R)
+// psi_rev order; tw/tws (ell, R, C); st/sts (ell, C-1) stage-major; q,
+// r_inv, c_inv and their companions (ell, 1).
 //
 // Bound on the H100: bytes.  Per limb the transform does (N/2)*log2(N)
 // butterflies plus N twiddle products, about 20 integer operations per byte
-// it must move at most, far under the card's operations-per-byte balance.
-// Design: the TPU kernel keeps a whole (limb block, N) tile in VMEM; one limb
-// at N = 2^16 is 256 KiB, more than a CTA's 227 KB of shared memory, so the
-// column and row phases are two passes that meet in global memory (a scratch
-// buffer the wrapper allocates):
+// it must move (data in and out, the twiddle tables, the stage tables).
 //
-//   column pass: grid (B * C/TC); a CTA loads an R x TC tile of whole
-//                columns (rows of TC consecutive words: coalesced), runs the
-//                R-point transform on each column in shared memory, and
-//                writes the tile back;
-//   row pass:    grid (B * R/TR); a CTA loads TR rows of C words, runs the
-//                C-point transform per row, and stores through a padded
-//                shared-memory transpose (stride C+1: no bank conflicts) so
-//                that the strided output a[k1 + R*k2] is written TR words at
-//                a time.
+// Design.  One limb lives in the shared memory of one thread-block cluster
+// of CCL CTAs for the whole transform (N = 2^16: 256 KiB, more than one
+// CTA's 227 KB): CTA r holds Rl = R/CCL whole rows, so the data cross device
+// memory once in and once out and nothing else is written.  Positions
+// p = r*Rl + pl of the column transform are ordered so that its stages that
+// cross CTAs come last (forward) or first (inverse):
 //
-// TC is the autotuner's knob; TR is the largest power of two <= R whose tile
-// fits 48 KB.  A tile above 48 KB takes dynamic shared memory after
-// cudaFuncSetAttribute; the wrapper refuses one above 227 KB.  The data make
-// two round trips through device memory, and the twiddle tables one: the
-// bound counts one.  A thread-block cluster sharing its shared memory could
-// keep a limb on chip in one pass; that is later work.
+//   forward: CTA r loads rows n1 = brev(p) (whole rows, coalesced), runs the
+//            column NTT as a decimation in time on bit-reversed input, which
+//            leaves natural k1 = p: CTA r ends with the contiguous k1 range
+//            [r*Rl, (r+1)*Rl).  Its stages m < Rl are local, the last
+//            log2(CCL) stages pair CTAs.  The twiddle rows tw[k1, :] are then
+//            read in order, the row DFT (decimation in frequency: natural in,
+//            bit-reversed out) is local, and out[k1 + R*k2] is written in runs
+//            of Rl words per k2;
+//   inverse: the mirror.  CTA r reads the contiguous k1 range in runs of Rl
+//            words per k2, writing k2 bit-reversed; the row iDFT (decimation
+//            in time) leaves natural n2; the column iNTT (Gentleman-Sande on
+//            natural input) crosses CTAs in its first log2(CCL) stages and
+//            leaves rows n1 = brev(p), which are stored whole.
 //
-// Tables are u32 bit patterns in int32 tensors (Shoup companions reach
-// 2^32-1): col_w/col_ws (ell, R) psi_rev order; tw/tws (ell, R, C);
-// st/sts (ell, C-1) stage-major; q, n_inv, c_inv and their companions (ell, 1).
+// A stage that crosses CTAs reads the partner CTAs' words at the thread's
+// own local offsets, 16 bytes at a time through map_shared_rank (in order:
+// on the H100 a scattered remote read costs 2.5-4x an in-order one), runs all
+// log2(CCL) cross stages in registers and writes every result back to its
+// owner; cluster.sync() comes before (the local stages are done everywhere)
+// and after (the results are in place); each word is read and written by one
+// thread only, so nothing else has to be ordered, and no CTA touches another
+// CTA's shared memory after the last cluster.sync().  The twiddle product is
+// fused into the column pass that touches the twiddle rows in order.  The
+// limb's column and row stage twiddles (R + C - 1 of each kind) are copied
+// to shared memory beside the tile as (w, w') pairs: a butterfly reads its
+// twiddle with one 8-byte shared load instead of two global loads whose
+// 64-bit address arithmetic cost more than the butterfly.
+//
+// What held the two-pass kernel back, and what this design does about it:
+//   - one butterfly per thread per stage, then a barrier: each thread holds
+//     up to 16 words of a column or a row in registers and runs up to four
+//     radix-2 stages between barriers (log2 N = 16 stages: 4-6 barriers);
+//   - integer division in every index: R, C, Rl and CCL are powers of two,
+//     passed as logarithms (CCL as a template argument); every index is a
+//     shift, a mask or a bit reversal (__brev);
+//   - shared-memory bank conflicts on the transposed and bit-reversed
+//     accesses: word x of local row pl lives at pl*C + (x ^ (pl & 31)) (an
+//     XOR swizzle, no padding), so a warp reading along a row or down a
+//     column (the transposed store, the bit-reversed load) hits 32 banks;
+//     the row passes give each lane its own row for that reason.  The
+//     swizzle is why the rows are staged by coalesced loads and not by the
+//     TMA, whose 1-D bulk copy cannot scatter words;
+//   - two launches meeting in device memory: one launch, no scratch;
+//   - few CTAs for small operands: CCL CTAs per limb, so (2, 12, N) runs
+//     24*CCL CTAs instead of 24.  The kernel is built for two CTAs of 512
+//     threads per SM (64 registers), and the wrapper's default cluster size
+//     takes the largest share at which two CTAs fit an SM (N = 2^16: CCL = 4,
+//     68 KiB), so that one CTA's loads and stores overlap the other's stages.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kSmallSmem = 48 * 1024;
+constexpr int kNttThreads = 512;
+constexpr int kMaxRadixLog = 4;              // up to 16 words per thread per pass
 
 __device__ __forceinline__ uint32_t mul_shoup_lazy(uint32_t x, uint32_t w,
                                                    uint32_t ws, uint32_t q) {
   return x * w - __umulhi(x, ws) * q;          // in [0, 2q) for any u32 x
 }
 
-__device__ __forceinline__ uint32_t add_lazy(uint32_t a, uint32_t b,
-                                             uint32_t two_q) {
-  const uint32_t s = a + b;
-  return s >= two_q ? s - two_q : s;
-}
-
-__device__ __forceinline__ uint32_t sub_lazy(uint32_t a, uint32_t b,
-                                             uint32_t two_q) {
-  const uint32_t d = a + two_q - b;
-  return d >= two_q ? d - two_q : d;
+// [0, 4q) -> [0, 2q): s - 2q wraps above s exactly when s < 2q.
+__device__ __forceinline__ uint32_t fold(uint32_t s, uint32_t two_q) {
+  return min(s, s - two_q);
 }
 
 __device__ __forceinline__ uint32_t reduce_once(uint32_t x, uint32_t q) {
-  return x >= q ? x - q : x;
+  return min(x, x - q);
 }
 
-__device__ __forceinline__ int bit_reverse(int v, int bits) {
-  return bits == 0 ? 0 : static_cast<int>(__brev(static_cast<unsigned>(v)) >> (32 - bits));
+// v reversed in its low `bits` bits (0 <= bits <= 31).
+__device__ __forceinline__ int brev(int v, int bits) {
+  return static_cast<int>((__brev(static_cast<unsigned>(v)) >> 1) >> (31 - bits));
 }
 
-// Forward column pass: x -> y = twiddle * column-NTT(x), both (B, R, C).
-__global__ void ntt_fwd_col_kernel(const uint32_t* __restrict__ x,
-                                   uint32_t* __restrict__ y,
-                                   const uint32_t* __restrict__ col_w,
-                                   const uint32_t* __restrict__ col_ws,
-                                   const uint32_t* __restrict__ tw,
-                                   const uint32_t* __restrict__ tws,
-                                   const uint32_t* __restrict__ q_tab,
-                                   int ell, int R, int C, int TC, int log_r) {
-  extern __shared__ uint32_t s[];
-  const int tiles = C / TC;
-  const long long b = blockIdx.x / tiles;
-  const int c0 = static_cast<int>(blockIdx.x % tiles) * TC;
-  const int limb = static_cast<int>(b % ell);
-  const long long N = static_cast<long long>(R) * C;
-  const uint32_t q = q_tab[limb], two_q = q + q;
-  const uint32_t* xb = x + b * N;
-  const int n = R * TC;
-  for (int e = threadIdx.x; e < n; e += blockDim.x)
-    s[e] = xb[static_cast<long long>(e / TC) * C + c0 + e % TC];
-  __syncthreads();
-  const uint32_t* w = col_w + static_cast<long long>(limb) * R;
-  const uint32_t* ws = col_ws + static_cast<long long>(limb) * R;
-  const int half = (R / 2) * TC;
-  for (int m = 1, t = R / 2; m < R; m *= 2, t /= 2) {   // fused CT stages
-    for (int f = threadIdx.x; f < half; f += blockDim.x) {
-      const int c = f % TC, k = f / TC;
-      const int i = k / t, j = i * 2 * t + k % t;
-      const uint32_t a = s[j * TC + c];
-      const uint32_t bw = mul_shoup_lazy(s[(j + t) * TC + c], w[m + i], ws[m + i], q);
-      s[j * TC + c] = add_lazy(a, bw, two_q);
-      s[(j + t) * TC + c] = sub_lazy(a, bw, two_q);
+// Cooley-Tukey (decimation in time): (a, b) -> (a + w b, a - w b).
+__device__ __forceinline__ void ct(uint32_t& a, uint32_t& b, uint32_t w,
+                                   uint32_t ws, uint32_t q, uint32_t two_q) {
+  const uint32_t bw = mul_shoup_lazy(b, w, ws, q);
+  const uint32_t u = a;
+  a = fold(u + bw, two_q);
+  b = fold(u + two_q - bw, two_q);
+}
+
+// Gentleman-Sande (decimation in frequency): (a, b) -> (a + b, (a - b) w).
+__device__ __forceinline__ void gs(uint32_t& a, uint32_t& b, uint32_t w,
+                                   uint32_t ws, uint32_t q, uint32_t two_q) {
+  const uint32_t u = a;
+  a = fold(u + b, two_q);
+  b = mul_shoup_lazy(u + two_q - b, w, ws, q);
+}
+
+// The CTA's Rl x C block of the limb in shared memory, XOR-swizzled.
+struct Tile {
+  uint32_t* s;
+  int lg_rl, lg_c, key;                        // key = min(C, 32) - 1
+  __device__ __forceinline__ int at(int pl, int x) const {
+    return (pl << lg_c) | (x ^ (pl & key));
+  }
+};
+
+// Per-limb tables, u32 bits.  col_w: psi_rev (forward) or psi_inv_rev
+// (inverse); tw: the twiddle or the inverse twiddle; st: the row stages.
+struct NttTables {
+  const uint32_t *col_w, *col_ws, *tw, *tws, *st, *sts, *q;
+  const uint32_t *r_inv, *r_inv_s, *c_inv, *c_inv_s;   // inverse only
+};
+
+// One limb's tables.  kStaged: the column and row twiddles were copied to
+// shared memory as (w, w') pairs (the wrapper's choice: when they are small
+// beside the tile, as at R and C near sqrt(N)), else they are read from
+// device memory.
+template <bool kStaged>
+struct Limb {
+  const uint32_t *col_w, *col_ws, *st, *sts, *tw, *tws;
+  const uint2 *col, *row;
+  uint32_t q, two_q, r_inv, r_inv_s, c_inv, c_inv_s;
+  __device__ __forceinline__ uint2 col_pair(int i) const {
+    if constexpr (kStaged) return col[i];
+    else return make_uint2(__ldg(col_w + i), __ldg(col_ws + i));
+  }
+  __device__ __forceinline__ uint2 row_pair(int i) const {
+    if constexpr (kStaged) return row[i];
+    else return make_uint2(__ldg(st + i), __ldg(sts + i));
+  }
+};
+
+// The limb's tables; with kStaged its column and row twiddles are copied,
+// as (w, w') pairs, to `pairs` in shared memory (R + C - 1 pairs, read
+// after the barrier that ends the staging loads).
+template <bool kStaged>
+__device__ __forceinline__ Limb<kStaged> limb_tables(const NttTables& t, int limb,
+                                                     int lg_r, int lg_c,
+                                                     bool forward, uint2* pairs) {
+  const int R = 1 << lg_r, C = 1 << lg_c;
+  Limb<kStaged> l;
+  l.col_w = t.col_w + static_cast<long long>(limb) * R;
+  l.col_ws = t.col_ws + static_cast<long long>(limb) * R;
+  l.st = t.st + static_cast<long long>(limb) * (C - 1);
+  l.sts = t.sts + static_cast<long long>(limb) * (C - 1);
+  if constexpr (kStaged) {
+    for (int i = threadIdx.x; i < R; i += kNttThreads)
+      pairs[i] = make_uint2(__ldg(l.col_w + i), __ldg(l.col_ws + i));
+    for (int i = threadIdx.x; i < C - 1; i += kNttThreads)
+      pairs[R + i] = make_uint2(__ldg(l.st + i), __ldg(l.sts + i));
+  }
+  l.col = pairs;
+  l.row = pairs + R;
+  l.tw = t.tw + (static_cast<long long>(limb) << (lg_r + lg_c));
+  l.tws = t.tws + (static_cast<long long>(limb) << (lg_r + lg_c));
+  l.q = __ldg(t.q + limb);
+  l.two_q = l.q + l.q;
+  l.r_inv = forward ? 0u : __ldg(t.r_inv + limb);
+  l.r_inv_s = forward ? 0u : __ldg(t.r_inv_s + limb);
+  l.c_inv = forward ? 0u : __ldg(t.c_inv + limb);
+  l.c_inv_s = forward ? 0u : __ldg(t.c_inv_s + limb);
+  return l;
+}
+
+// Twiddle product of element (k1, n2): forward psi^{(2k1+1)n2}; inverse
+// C^-1 psi^{-(2k1+1)n2}.
+template <bool kForward, class L>
+__device__ __forceinline__ uint32_t twiddle(uint32_t v, const L& l, int k1,
+                                            int n2, int lg_c) {
+  const int off = (k1 << lg_c) | n2;
+  if (!kForward) v = mul_shoup_lazy(v, l.c_inv, l.c_inv_s, l.q);
+  return mul_shoup_lazy(v, __ldg(l.tw + off), __ldg(l.tws + off), l.q);
+}
+
+// Column stages on row-index bits [b0, b0 + K) within the CTA (stages
+// m = 2^(b0+h) < Rl, so p mod m = pl mod m): each thread holds 2^K words of
+// one column, lanes on consecutive columns.  Forward: DIT, twiddle
+// psi_rev[m + brev(p mod m)].  Inverse: GS in the reverse order with
+// psi_inv_rev at the same index.  `tw_too`: the twiddle product after the
+// stages (forward) or before them (inverse), with k1 = pl (CCL = 1 only).
+template <int K, bool kForward, class L>
+__device__ __forceinline__ void col_pass(const Tile& t, const L& l, int b0,
+                                         bool tw_too) {
+  constexpr int E = 1 << K;
+  const int C = 1 << t.lg_c;
+  const int groups = 1 << (t.lg_rl + t.lg_c - K);
+  for (int g = threadIdx.x; g < groups; g += kNttThreads) {
+    const int c = g & (C - 1);
+    const int rest = g >> t.lg_c;
+    const int lo = rest & ((1 << b0) - 1);
+    const int p0 = lo | ((rest >> b0) << (b0 + K));
+    uint32_t v[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) v[j] = t.s[t.at(p0 | (j << b0), c)];
+    if (!kForward && tw_too) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) v[j] = twiddle<false>(v[j], l, p0 | (j << b0), c, t.lg_c);
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int h = kForward ? i : K - 1 - i;
+      const int lg_m = b0 + h;
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        if (j & (1 << h)) continue;
+        const int k = lo | ((j & ((1 << h) - 1)) << b0);
+        const int idx = (1 << lg_m) | brev(k, lg_m);
+        const uint2 w = l.col_pair(idx);
+        if (kForward) ct(v[j], v[j | (1 << h)], w.x, w.y, l.q, l.two_q);
+        else gs(v[j], v[j | (1 << h)], w.x, w.y, l.q, l.two_q);
+      }
+    }
+    if (kForward && tw_too) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) v[j] = twiddle<true>(v[j], l, p0 | (j << b0), c, t.lg_c);
+    }
+#pragma unroll
+    for (int j = 0; j < E; ++j) t.s[t.at(p0 | (j << b0), c)] = v[j];
+  }
+}
+
+// Row stages on column-index bits [b0, b0 + K): each thread holds 2^K words
+// of one row, lanes on consecutive rows (distinct banks under the swizzle).
+// Forward: DIF (natural in, bit-reversed out); inverse: DIT (bit-reversed
+// in, natural out); both with the stage table st[m - 1 + (x mod m)].
+template <int K, bool kForward, class L>
+__device__ __forceinline__ void row_pass(const Tile& t, const L& l, int b0) {
+  constexpr int E = 1 << K;
+  const int Rl = 1 << t.lg_rl;
+  const int groups = 1 << (t.lg_rl + t.lg_c - K);
+  for (int g = threadIdx.x; g < groups; g += kNttThreads) {
+    const int pl = g & (Rl - 1);
+    const int rest = g >> t.lg_rl;
+    const int lo = rest & ((1 << b0) - 1);
+    const int x0 = lo | ((rest >> b0) << (b0 + K));
+    uint32_t v[E];
+#pragma unroll
+    for (int j = 0; j < E; ++j) v[j] = t.s[t.at(pl, x0 | (j << b0))];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int h = kForward ? K - 1 - i : i;
+      const int m = 1 << (b0 + h);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        if (j & (1 << h)) continue;
+        const int idx = m - 1 + (lo | ((j & ((1 << h) - 1)) << b0));
+        const uint2 w = l.row_pair(idx);
+        if (kForward) gs(v[j], v[j | (1 << h)], w.x, w.y, l.q, l.two_q);
+        else ct(v[j], v[j | (1 << h)], w.x, w.y, l.q, l.two_q);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < E; ++j) t.s[t.at(pl, x0 | (j << b0))] = v[j];
+  }
+}
+
+template <bool kForward, int K, class L>
+__device__ __forceinline__ void run_pass(bool col, const Tile& t, const L& l,
+                                         int b0, bool tw_too) {
+  if (col) col_pass<K, kForward>(t, l, b0, tw_too);
+  else row_pass<K, kForward>(t, l, b0);
+}
+
+// Stages on bits [0, bits) of the column (col) or row index, in passes of
+// at most kMaxRadixLog bits of near-equal size: upwards for a DIT, downwards
+// for a DIF/GS, with a barrier after each pass.  `tw_first` / `tw_last`: the
+// twiddle product in the first / last column pass.
+template <bool kForward, class L>
+__device__ __forceinline__ void local_stages(bool col, int bits, const Tile& t,
+                                             const L& l, bool tw_first,
+                                             bool tw_last) {
+  static_assert(kMaxRadixLog == 4, "passes = ceil(bits / 4) below");
+  if (bits == 0) return;
+  const bool up = col == kForward;         // column DIT forward, row DIT inverse
+  const int passes = (bits + 3) >> 2;
+  int base = 1;
+  while ((base + 1) * passes <= bits) ++base;       // bits = base*passes + extra
+  const int extra = bits - base * passes;
+  for (int i = 0; i < passes; ++i) {
+    const int n = up ? i : passes - 1 - i;          // which slice of the bits
+    const int K = base + (n < extra);
+    const int b0 = n * base + min(n, extra);
+    const bool tw_too = (i == 0 && tw_first) || (i == passes - 1 && tw_last);
+    switch (K) {
+      case 1: run_pass<kForward, 1>(col, t, l, b0, tw_too); break;
+      case 2: run_pass<kForward, 2>(col, t, l, b0, tw_too); break;
+      case 3: run_pass<kForward, 3>(col, t, l, b0, tw_too); break;
+      default: run_pass<kForward, 4>(col, t, l, b0, tw_too); break;
     }
     __syncthreads();
   }
-  const uint32_t* twl = tw + limb * N;
-  const uint32_t* twsl = tws + limb * N;
-  uint32_t* yb = y + b * N;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int k1 = e / TC, c = e % TC;                  // bit-reversed -> natural
-    const long long off = static_cast<long long>(k1) * C + c0 + c;
-    yb[off] = mul_shoup_lazy(s[bit_reverse(k1, log_r) * TC + c], twl[off], twsl[off], q);
-  }
 }
 
-// C-point cyclic DIT over TR rows held at stride S in shared memory (the
-// rows were loaded in bit-reversed order); lazy in and out.
-__device__ __forceinline__ void row_dft(uint32_t* s, int S, int TR, int C,
-                                        const uint32_t* __restrict__ st,
-                                        const uint32_t* __restrict__ sts,
-                                        uint32_t q) {
-  const uint32_t two_q = q + q;
-  const int hc = C / 2;
-  const int half = TR * hc;
-  for (int m = 1; m < C; m *= 2) {
-    for (int f = threadIdx.x; f < half; f += blockDim.x) {
-      const int r = f / hc, k = f % hc;
-      const int i = k % m, j = (k / m) * 2 * m + i;
-      uint32_t* row = s + r * S;
-      const uint32_t a = row[j];
-      const uint32_t bw = mul_shoup_lazy(row[j + m], st[m - 1 + i], sts[m - 1 + i], q);
-      row[j] = add_lazy(a, bw, two_q);
-      row[j + m] = sub_lazy(a, bw, two_q);
+// The column stages that pair CTAs (m >= Rl): each thread takes 4 words at
+// one local offset from every CTA of the cluster, runs the log2(CCL) stages
+// in registers, and writes each word back to its owner.  The twiddle product
+// comes after the stages (forward) or before them (inverse).  CTA r handles
+// the r-th share of the offsets.  Called between two cluster.sync().
+template <int CCL, bool kForward, class L>
+__device__ __forceinline__ void cross_pass(cg::cluster_group& cluster,
+                                           const Tile& t, const L& l,
+                                           int rank) {
+  constexpr int LG = CCL == 2 ? 1 : CCL == 4 ? 2 : 3;
+  const int share = 1 << (t.lg_rl + t.lg_c - LG);
+  const int C = 1 << t.lg_c;
+  const int end = (rank + 1) * share;
+  for (int o = rank * share + 4 * static_cast<int>(threadIdx.x); o < end;
+       o += 4 * kNttThreads) {
+    uint32_t a[CCL][4];
+#pragma unroll
+    for (int r = 0; r < CCL; ++r) {
+      const uint4 u = *reinterpret_cast<const uint4*>(cluster.map_shared_rank(t.s + o, r));
+      a[r][0] = u.x; a[r][1] = u.y; a[r][2] = u.z; a[r][3] = u.w;
     }
-    __syncthreads();
-  }
-}
-
-// Forward row pass: y (B, R, C) -> out with out[k1 + R*k2] = DFT(y[k1])[k2].
-__global__ void ntt_fwd_row_kernel(const uint32_t* __restrict__ y,
-                                   uint32_t* __restrict__ out,
-                                   const uint32_t* __restrict__ st,
-                                   const uint32_t* __restrict__ sts,
-                                   const uint32_t* __restrict__ q_tab,
-                                   int ell, int R, int C, int TR, int log_c) {
-  extern __shared__ uint32_t s[];
-  const int S = C + 1;
-  const int tiles = R / TR;
-  const long long b = blockIdx.x / tiles;
-  const int k0 = static_cast<int>(blockIdx.x % tiles) * TR;
-  const int limb = static_cast<int>(b % ell);
-  const long long N = static_cast<long long>(R) * C;
-  const uint32_t q = q_tab[limb];
-  const uint32_t* yb = y + b * N + static_cast<long long>(k0) * C;
-  const int n = TR * C;
-  for (int e = threadIdx.x; e < n; e += blockDim.x)
-    s[(e / C) * S + bit_reverse(e % C, log_c)] = yb[e];
-  __syncthreads();
-  row_dft(s, S, TR, C, st + static_cast<long long>(limb) * (C - 1),
-          sts + static_cast<long long>(limb) * (C - 1), q);
-  uint32_t* ob = out + b * N + k0;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int k2 = e / TR, r = e % TR;
-    ob[r + static_cast<long long>(R) * k2] = reduce_once(s[r * S + k2], q);
-  }
-}
-
-// Inverse row pass: x with B[k1, k2] = x[k1 + R*k2] -> y (B, R, C) =
-// twiddle_inv * C^-1 * inverse-DFT(B[k1]).
-__global__ void ntt_inv_row_kernel(const uint32_t* __restrict__ x,
-                                   uint32_t* __restrict__ y,
-                                   const uint32_t* __restrict__ st,
-                                   const uint32_t* __restrict__ sts,
-                                   const uint32_t* __restrict__ twi,
-                                   const uint32_t* __restrict__ twis,
-                                   const uint32_t* __restrict__ c_inv,
-                                   const uint32_t* __restrict__ c_inv_s,
-                                   const uint32_t* __restrict__ q_tab,
-                                   int ell, int R, int C, int TR, int log_c) {
-  extern __shared__ uint32_t s[];
-  const int S = C + 1;
-  const int tiles = R / TR;
-  const long long b = blockIdx.x / tiles;
-  const int k0 = static_cast<int>(blockIdx.x % tiles) * TR;
-  const int limb = static_cast<int>(b % ell);
-  const long long N = static_cast<long long>(R) * C;
-  const uint32_t q = q_tab[limb];
-  const uint32_t* xb = x + b * N + k0;
-  const int n = TR * C;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int k2 = e / TR, r = e % TR;
-    s[r * S + bit_reverse(k2, log_c)] = xb[r + static_cast<long long>(R) * k2];
-  }
-  __syncthreads();
-  row_dft(s, S, TR, C, st + static_cast<long long>(limb) * (C - 1),
-          sts + static_cast<long long>(limb) * (C - 1), q);
-  const uint32_t ci = c_inv[limb], cis = c_inv_s[limb];
-  const long long base = static_cast<long long>(k0) * C;
-  const uint32_t* twl = twi + limb * N + base;
-  const uint32_t* twsl = twis + limb * N + base;
-  uint32_t* yb = y + b * N + base;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const uint32_t v = mul_shoup_lazy(s[(e / C) * S + e % C], ci, cis, q);
-    yb[e] = mul_shoup_lazy(v, twl[e], twsl[e], q);
-  }
-}
-
-// Inverse column pass: y (B, R, C) -> out (B, R, C), the R-point column iNTT
-// with its R^-1 scaling, fully reduced.
-__global__ void ntt_inv_col_kernel(const uint32_t* __restrict__ y,
-                                   uint32_t* __restrict__ out,
-                                   const uint32_t* __restrict__ col_wi,
-                                   const uint32_t* __restrict__ col_wis,
-                                   const uint32_t* __restrict__ r_inv,
-                                   const uint32_t* __restrict__ r_inv_s,
-                                   const uint32_t* __restrict__ q_tab,
-                                   int ell, int R, int C, int TC, int log_r) {
-  extern __shared__ uint32_t s[];
-  const int tiles = C / TC;
-  const long long b = blockIdx.x / tiles;
-  const int c0 = static_cast<int>(blockIdx.x % tiles) * TC;
-  const int limb = static_cast<int>(b % ell);
-  const long long N = static_cast<long long>(R) * C;
-  const uint32_t q = q_tab[limb], two_q = q + q;
-  const uint32_t* yb = y + b * N;
-  const int n = R * TC;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int k1 = e / TC, c = e % TC;                  // natural -> bit-reversed
-    s[bit_reverse(k1, log_r) * TC + c] = yb[static_cast<long long>(k1) * C + c0 + c];
-  }
-  __syncthreads();
-  const uint32_t* w = col_wi + static_cast<long long>(limb) * R;
-  const uint32_t* ws = col_wis + static_cast<long long>(limb) * R;
-  const int half = (R / 2) * TC;
-  for (int m = R, t = 1; m > 1; m /= 2, t *= 2) {       // fused GS stages
-    const int h = m / 2;
-    for (int f = threadIdx.x; f < half; f += blockDim.x) {
-      const int c = f % TC, k = f / TC;
-      const int i = k / t, j = i * 2 * t + k % t;
-      const uint32_t a = s[j * TC + c], v = s[(j + t) * TC + c];
-      s[j * TC + c] = add_lazy(a, v, two_q);
-      s[(j + t) * TC + c] = mul_shoup_lazy(sub_lazy(a, v, two_q), w[h + i], ws[h + i], q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int pl = (o + e) >> t.lg_c;
+      const int x = ((o + e) & (C - 1)) ^ (pl & t.key);   // logical column
+      if (!kForward) {
+#pragma unroll
+        for (int r = 0; r < CCL; ++r)
+          a[r][e] = twiddle<false>(a[r][e], l, (r << t.lg_rl) | pl, x, t.lg_c);
+      }
+#pragma unroll
+      for (int i = 0; i < LG; ++i) {
+        const int h = kForward ? i : LG - 1 - i;
+        const int lg_m = t.lg_rl + h;
+#pragma unroll
+        for (int r = 0; r < CCL; ++r) {
+          if (r & (1 << h)) continue;
+          const int k = ((r & ((1 << h) - 1)) << t.lg_rl) | pl;
+          const int idx = (1 << lg_m) | brev(k, lg_m);
+          const uint2 w = l.col_pair(idx);
+          if (kForward) ct(a[r][e], a[r | (1 << h)][e], w.x, w.y, l.q, l.two_q);
+          else gs(a[r][e], a[r | (1 << h)][e], w.x, w.y, l.q, l.two_q);
+        }
+      }
+      if (kForward) {
+#pragma unroll
+        for (int r = 0; r < CCL; ++r)
+          a[r][e] = twiddle<true>(a[r][e], l, (r << t.lg_rl) | pl, x, t.lg_c);
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < CCL; ++r)
+      *reinterpret_cast<uint4*>(cluster.map_shared_rank(t.s + o, r)) =
+          make_uint4(a[r][0], a[r][1], a[r][2], a[r][3]);
   }
-  const uint32_t ri = r_inv[limb], ris = r_inv_s[limb];
-  uint32_t* ob = out + b * N;
-  for (int e = threadIdx.x; e < n; e += blockDim.x)
-    ob[static_cast<long long>(e / TC) * C + c0 + e % TC] =
-        reduce_once(mul_shoup_lazy(s[e], ri, ris, q), q);
+}
+
+// One limb row per cluster: blockIdx.x = limb * CCL + rank, blockIdx.y = the
+// leading index, so row b = blockIdx.y * ell + limb.
+template <int CCL, bool kStaged>
+__global__ void __launch_bounds__(kNttThreads, 2)
+ntt_fwd_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+               NttTables tabs, int ell, int lg_r, int lg_c) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr int LG = CCL == 1 ? 0 : CCL == 2 ? 1 : CCL == 4 ? 2 : 3;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(blockIdx.x) & (CCL - 1);
+  const int limb = static_cast<int>(blockIdx.x) >> LG;
+  const long long row = static_cast<long long>(blockIdx.y) * ell + limb;
+  const auto l = limb_tables<kStaged>(tabs, limb, lg_r, lg_c, true,
+                             reinterpret_cast<uint2*>(smem + (1 << (lg_r + lg_c - LG))));
+  const Tile t{smem, lg_r - LG, lg_c, min(1 << lg_c, 32) - 1};
+  const int words = 1 << (t.lg_rl + lg_c);
+  const int C = 1 << lg_c, Rl = 1 << t.lg_rl;
+  // rows n1 = brev(p), p = rank*Rl + pl: whole rows, in order
+  const uint32_t* src = x + (row << (lg_r + lg_c));
+#pragma unroll 8
+  for (int e = threadIdx.x; e < words; e += kNttThreads) {
+    const int pl = e >> lg_c, c = e & (C - 1);
+    const int n1 = brev((rank << t.lg_rl) | pl, lg_r);
+    smem[t.at(pl, c)] = __ldg(src + ((n1 << lg_c) | c));
+  }
+  __syncthreads();
+  // column NTT: local DIT stages, then the stages across the cluster; the
+  // twiddle product ends the last column pass
+  local_stages<true>(true, t.lg_rl, t, l, false, CCL == 1);
+  if constexpr (CCL > 1) {
+    cluster.sync();
+    cross_pass<CCL, true>(cluster, t, l, rank);
+    cluster.sync();
+  }
+  // row DFT, natural n2 in, bit-reversed k2 out
+  local_stages<true>(false, lg_c, t, l, false, false);
+  // out[k1 + R*k2]: runs of Rl words per k2
+  uint32_t* dst = out + (row << (lg_r + lg_c)) + (rank << t.lg_rl);
+#pragma unroll 8
+  for (int e = threadIdx.x; e < words; e += kNttThreads) {
+    const int pl = e & (Rl - 1), k2 = e >> t.lg_rl;
+    dst[pl + (static_cast<long long>(k2) << lg_r)] =
+        reduce_once(smem[t.at(pl, brev(k2, lg_c))], l.q);
+  }
+}
+
+template <int CCL, bool kStaged>
+__global__ void __launch_bounds__(kNttThreads, 2)
+ntt_inv_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+               NttTables tabs, int ell, int lg_r, int lg_c) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr int LG = CCL == 1 ? 0 : CCL == 2 ? 1 : CCL == 4 ? 2 : 3;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(blockIdx.x) & (CCL - 1);
+  const int limb = static_cast<int>(blockIdx.x) >> LG;
+  const long long row = static_cast<long long>(blockIdx.y) * ell + limb;
+  const auto l = limb_tables<kStaged>(tabs, limb, lg_r, lg_c, false,
+                             reinterpret_cast<uint2*>(smem + (1 << (lg_r + lg_c - LG))));
+  const Tile t{smem, lg_r - LG, lg_c, min(1 << lg_c, 32) - 1};
+  const int words = 1 << (t.lg_rl + lg_c);
+  const int C = 1 << lg_c, Rl = 1 << t.lg_rl;
+  // B[k1, k2] = x[k1 + R*k2] for k1 in [rank*Rl, (rank+1)*Rl): runs of Rl
+  // words per k2, written to column brev(k2)
+  const uint32_t* src = x + (row << (lg_r + lg_c)) + (rank << t.lg_rl);
+#pragma unroll 8
+  for (int e = threadIdx.x; e < words; e += kNttThreads) {
+    const int pl = e & (Rl - 1), k2 = e >> t.lg_rl;
+    smem[t.at(pl, brev(k2, lg_c))] =
+        __ldg(src + pl + (static_cast<long long>(k2) << lg_r));
+  }
+  __syncthreads();
+  // row iDFT, bit-reversed in, natural n2 out
+  local_stages<false>(false, lg_c, t, l, false, false);
+  // column iNTT: C^-1 and the inverse twiddle begin the first column pass,
+  // the stages across the cluster come first, then the local GS stages
+  if constexpr (CCL > 1) {
+    cluster.sync();
+    cross_pass<CCL, false>(cluster, t, l, rank);
+    cluster.sync();
+  }
+  local_stages<false>(true, t.lg_rl, t, l, CCL == 1, false);
+  // rows n1 = brev(p) times R^-1, fully reduced, stored whole
+  uint32_t* dst = out + (row << (lg_r + lg_c));
+#pragma unroll 8
+  for (int e = threadIdx.x; e < words; e += kNttThreads) {
+    const int pl = e >> lg_c, c = e & (C - 1);
+    const int n1 = brev((rank << t.lg_rl) | pl, lg_r);
+    dst[(n1 << lg_c) | c] =
+        reduce_once(mul_shoup_lazy(smem[t.at(pl, c)], l.r_inv, l.r_inv_s, l.q), l.q);
+  }
+}
+
+// Dynamic shared memory of a CTA: its N / CCL words, and with the twiddle
+// pairs staged their R + C - 1 pairs.
+long long staged_smem(int lg_r, int lg_c, int ccl, bool staged) {
+  const long long words = (1LL << (lg_r + lg_c)) / ccl;
+  return (words + (staged ? 2LL * ((1LL << lg_r) + (1LL << lg_c) - 1) : 0)) * 4;
 }
 
 int log2i(int v) {
@@ -266,75 +481,105 @@ int log2i(int v) {
   return l;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= static_cast<size_t>(kSmallSmem)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// Launch one direction at cluster size CCL: grid (ell * CCL, B / ell),
+// N / CCL words and R + C - 1 twiddle pairs of dynamic shared memory per CTA.
+template <bool kForward, int CCL, bool kStaged>
+cudaError_t launch_ntt(const void* x, void* out, const NttTables& tabs, int B,
+                       int ell, int lg_r, int lg_c, cudaStream_t stream) {
+  const int smem = staged_smem(lg_r, lg_c, CCL, kStaged);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CCL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ell * CCL), static_cast<unsigned>(B / ell));
+  cfg.blockDim = dim3(kNttThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  auto kernel = kForward ? ntt_fwd_kernel<CCL, kStaged> : ntt_inv_kernel<CCL, kStaged>;
+  static repro::ClusterLaunchState state;
+  cudaError_t err = repro::prepare_cluster_launch(kernel, cfg, state, CCL, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const uint32_t*>(x),
+                           static_cast<uint32_t*>(out), tabs, ell, lg_r, lg_c);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <bool kForward, int CCL>
+cudaError_t launch_at(const void* x, void* out, const NttTables& tabs, int B,
+                      int ell, int lg_r, int lg_c, bool staged,
+                      cudaStream_t stream) {
+  if (staged)
+    return launch_ntt<kForward, CCL, true>(x, out, tabs, B, ell, lg_r, lg_c, stream);
+  return launch_ntt<kForward, CCL, false>(x, out, tabs, B, ell, lg_r, lg_c, stream);
+}
+
+template <bool kForward>
+int launch(const void* x, void* out, const NttTables& tabs, int B, int ell,
+           int R, int C, int cluster, int staged, void* stream) {
+  if (B <= 0) return 0;
+  const long long N = static_cast<long long>(R) * C;
+  const bool ok =
+      ell > 0 && B % ell == 0 && B / ell <= 65535 && R >= 2 && C >= 2 &&
+      (R & (R - 1)) == 0 && (C & (C - 1)) == 0 && N <= (1LL << 30) &&
+      (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) &&
+      cluster <= R && N / cluster * 4 <= repro::kMaxSmemPerCta &&
+      (cluster == 1 || N % (4LL * cluster * cluster) == 0) &&
+      (staged == 0 || staged == 1) &&
+      static_cast<long long>(ell) * cluster <= 0x7fffffffLL;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int lg_r = log2i(R), lg_c = log2i(C);
+  if (staged_smem(lg_r, lg_c, cluster, staged) > repro::kMaxSmemPerCta)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (cluster) {
+    case 1: err = launch_at<kForward, 1>(x, out, tabs, B, ell, lg_r, lg_c, staged, s); break;
+    case 2: err = launch_at<kForward, 2>(x, out, tabs, B, ell, lg_r, lg_c, staged, s); break;
+    case 4: err = launch_at<kForward, 4>(x, out, tabs, B, ell, lg_r, lg_c, staged, s); break;
+    default: err = launch_at<kForward, 8>(x, out, tabs, B, ell, lg_r, lg_c, staged, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// x, out, scratch (B, N) u32 with N = R*C; tables as in the header note.
-// TC divides C, TR divides R; the wrapper checks the tile sizes.
-extern "C" int ntt_fwd_launch(const void* x, void* out, void* scratch,
-                              const void* col_w, const void* col_ws,
-                              const void* tw, const void* tws,
-                              const void* st, const void* sts, const void* q,
-                              int B, int ell, int R, int C, int TC, int TR,
-                              void* stream) {
-  if (B <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t col_smem = static_cast<size_t>(R) * TC * 4;
-  const size_t row_smem = static_cast<size_t>(TR) * (C + 1) * 4;
-  cudaError_t err = allow_smem(ntt_fwd_col_kernel, col_smem);
-  if (err == cudaSuccess) err = allow_smem(ntt_fwd_row_kernel, row_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_fwd_col_kernel<<<static_cast<unsigned>(static_cast<long long>(B) * (C / TC)),
-                       repro::kThreads, col_smem, s>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(scratch),
+// x, out (B, N) u32 with N = R*C and B a multiple of ell; clusters of
+// `cluster` CTAs per row (1, 2, 4 or 8, at most R, N/cluster words fitting
+// one CTA, N a multiple of 4*cluster^2 when cluster > 1); `staged`: copy the
+// R + C - 1 column and row twiddle pairs to shared memory too; tables as in
+// the header note.  Returns the CUDA error of a refused plan or launch.
+extern "C" int ntt_fwd_launch(const void* x, void* out, const void* col_w,
+                              const void* col_ws, const void* tw,
+                              const void* tws, const void* st, const void* sts,
+                              const void* q, int B, int ell, int R, int C,
+                              int cluster, int staged, void* stream) {
+  const NttTables tabs{
       static_cast<const uint32_t*>(col_w), static_cast<const uint32_t*>(col_ws),
       static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(tws),
-      static_cast<const uint32_t*>(q), ell, R, C, TC, log2i(R));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_fwd_row_kernel<<<static_cast<unsigned>(static_cast<long long>(B) * (R / TR)),
-                       repro::kThreads, row_smem, s>>>(
-      static_cast<const uint32_t*>(scratch), static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(st), static_cast<const uint32_t*>(sts),
-      static_cast<const uint32_t*>(q), ell, R, C, TR, log2i(C));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const uint32_t*>(q), nullptr, nullptr, nullptr, nullptr};
+  return launch<true>(x, out, tabs, B, ell, R, C, cluster, staged, stream);
 }
 
-extern "C" int ntt_inv_launch(const void* x, void* out, void* scratch,
-                              const void* col_wi, const void* col_wis,
-                              const void* twi, const void* twis,
-                              const void* sti, const void* stis,
-                              const void* r_inv, const void* r_inv_s,
-                              const void* c_inv, const void* c_inv_s,
-                              const void* q, int B, int ell, int R, int C,
-                              int TC, int TR, void* stream) {
-  if (B <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t col_smem = static_cast<size_t>(R) * TC * 4;
-  const size_t row_smem = static_cast<size_t>(TR) * (C + 1) * 4;
-  cudaError_t err = allow_smem(ntt_inv_row_kernel, row_smem);
-  if (err == cudaSuccess) err = allow_smem(ntt_inv_col_kernel, col_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_inv_row_kernel<<<static_cast<unsigned>(static_cast<long long>(B) * (R / TR)),
-                       repro::kThreads, row_smem, s>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(scratch),
-      static_cast<const uint32_t*>(sti), static_cast<const uint32_t*>(stis),
-      static_cast<const uint32_t*>(twi), static_cast<const uint32_t*>(twis),
-      static_cast<const uint32_t*>(c_inv), static_cast<const uint32_t*>(c_inv_s),
-      static_cast<const uint32_t*>(q), ell, R, C, TR, log2i(C));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ntt_inv_col_kernel<<<static_cast<unsigned>(static_cast<long long>(B) * (C / TC)),
-                       repro::kThreads, col_smem, s>>>(
-      static_cast<const uint32_t*>(scratch), static_cast<uint32_t*>(out),
+extern "C" int ntt_inv_launch(const void* x, void* out, const void* col_wi,
+                              const void* col_wis, const void* twi,
+                              const void* twis, const void* sti,
+                              const void* stis, const void* r_inv,
+                              const void* r_inv_s, const void* c_inv,
+                              const void* c_inv_s, const void* q, int B,
+                              int ell, int R, int C, int cluster, int staged,
+                              void* stream) {
+  const NttTables tabs{
       static_cast<const uint32_t*>(col_wi), static_cast<const uint32_t*>(col_wis),
-      static_cast<const uint32_t*>(r_inv), static_cast<const uint32_t*>(r_inv_s),
-      static_cast<const uint32_t*>(q), ell, R, C, TC, log2i(R));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const uint32_t*>(twi), static_cast<const uint32_t*>(twis),
+      static_cast<const uint32_t*>(sti), static_cast<const uint32_t*>(stis),
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(r_inv),
+      static_cast<const uint32_t*>(r_inv_s), static_cast<const uint32_t*>(c_inv),
+      static_cast<const uint32_t*>(c_inv_s)};
+  return launch<false>(x, out, tabs, B, ell, R, C, cluster, staged, stream);
 }

@@ -47,8 +47,8 @@ SIGNATURES = {
         "automorphism_eager_launch": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
     },
     "ntt": {
-        "ntt_fwd_launch": [_P] * 10 + [_I] * 6 + [_P],
-        "ntt_inv_launch": [_P] * 14 + [_I] * 6 + [_P],
+        "ntt_fwd_launch": [_P] * 9 + [_I] * 6 + [_P],
+        "ntt_inv_launch": [_P] * 13 + [_I] * 6 + [_P],
     },
 }
 

@@ -50,8 +50,8 @@ def test_candidates_deterministic_and_valid(N_, ell):
         assert len({json.dumps(c, sort_keys=True) for c in cands}) == len(cands)
     for c in autotune.candidates("ntt", N_, ell):
         assert nttm.valid_submodules(N_, c["R"])
-        assert autotune.ntt_tile_ok(N_, c["R"], c["tile"])
-        assert ntt_ops.tiles(c["R"], N_ // c["R"], c["tile"])[0] == c["tile"]
+        assert ntt_ops.cluster_ok(N_, c["R"], c["cluster"])
+        assert ntt_ops.smem_bytes_per_cta(N_, c["R"], c["cluster"]) <= autotune.SMEM_MAX
     assert all(c["rows_per_cta"] >= 1 for c in autotune.candidates("automorphism", N_, ell))
     for family in ("eltwise", "bconv", "auto_ks"):
         assert autotune.candidates(family, N_, ell) == [{}]
@@ -72,20 +72,54 @@ def test_cold_cache_gives_defaults_and_balanced_R(cache):
 
 
 def test_cache_round_trips_through_a_file(cache):
-    key = autotune.record("ntt", N, 2, {"config": {"R": 8, "tile": 16}, "us": 1.5},
+    key = autotune.record("ntt", N, 2, {"config": {"R": 8, "cluster": 2}, "us": 1.5},
                           backend="cpu")
     assert key == "ntt/N=256/L=2/cpu" == autotune.cache_key("ntt", N, 2, "cpu")
-    assert json.loads(cache.read_text())["entries"][key]["config"] == {"R": 8, "tile": 16}
+    assert json.loads(cache.read_text())["entries"][key]["config"] == {"R": 8, "cluster": 2}
     autotune.set_cache_path(cache)                    # drop memory, reload the file
     assert autotune.entries()[key]["us"] == 1.5
-    assert autotune.best_config("ntt", N, 2, backend="cpu") == {"R": 8, "tile": 16}
-    # the wrappers resolve unpinned knobs from the cache entry of their device
+    assert autotune.best_config("ntt", N, 2, backend="cpu") == {"R": 8, "cluster": 2}
+    # the wrappers resolve unpinned knobs from the cache entry of their device;
+    # a cached cluster size counts only with the R it was tuned at
     x = pl.to_tensor(rand(tuple(rns.gen_ntt_primes(2, N))), CPU)
-    assert ntt_ops.resolve(x, None, None) == (8, 16)
-    assert ntt_ops.resolve(x, 32, None) == (32, 16)
+    assert ntt_ops.resolve(x, None, None) == (8, 2)
+    assert ntt_ops.resolve(x, 32, None) == (32, ntt_ops.cluster_plan(N, 32)) == (32, 1)
+    assert ntt_ops.resolve(x, None, 4) == (8, 4)
+    with pytest.raises(ValueError):
+        ntt_ops.resolve(x, 4, 8)                      # more CTAs than rows
     # a stale R falls back to √N
     autotune.record("ntt", N, 3, {"config": {"R": 3}}, backend="cpu")
     assert autotune.best_config("ntt", N, 3, backend="cpu")["R"] == 16
+
+
+NTT_PLAN_CASES = [(logN, R) for logN in (10, 11, 16)
+                  for R in (1 << k for k in range(1, logN))]
+
+
+@pytest.mark.parametrize("logN,R", NTT_PLAN_CASES)
+def test_ntt_cluster_plan_fits_a_cta(logN, R):
+    """The NTT's untuned cluster size at every split of N ∈ {2¹⁰, 2¹¹, 2¹⁶}:
+    the per-CTA share fits, no row spans CTAs, and it is the largest share
+    at which two CTAs share an SM, else the largest that fits one CTA."""
+    n = 1 << logN
+    c = ntt_ops.cluster_plan(n, R)
+    assert c in ntt_ops.CLUSTER_SIZES and c <= R and R % c == 0
+    assert ntt_ops.smem_bytes_per_cta(n, R, c) <= autotune.SMEM_MAX
+    assert ntt_ops.cluster_ok(n, R, c)
+    valid = [s for s in ntt_ops.CLUSTER_SIZES if ntt_ops.cluster_ok(n, R, s)]
+    paired = [s for s in valid if ntt_ops.smem_bytes_per_cta(n, R, s) <= ntt_ops.PAIR_SMEM]
+    assert c == (paired or valid)[0]
+    assert c == {10: 1, 11: 1, 16: 2 if R == 2 else 4}[logN]
+    if logN == 16:              # twiddle pairs in shared memory near R = √N
+        assert ntt_ops.stage_pairs(n, R, c) == (64 <= R <= 1024)
+    assert not ntt_ops.cluster_ok(n, R, 2 * R)            # a row would span CTAs
+    assert not ntt_ops.cluster_ok(n, R, 3)                # not a cluster size
+
+
+@pytest.mark.parametrize("logN,R", [(18, 2), (18, 4), (20, 1024), (17, 2)])
+def test_ntt_cluster_plan_raises_when_nothing_fits(logN, R):
+    with pytest.raises(ValueError):
+        ntt_ops.cluster_plan(1 << logN, R)
 
 
 @pytest.mark.parametrize("family", ["ntt", "automorphism"])

@@ -9,6 +9,8 @@ Imports nothing of JAX.  Each kernel must equal its plain version exactly,
 including past the 15 raw products after which a u64 sum would overflow, and
 the whole CKKS pipeline must give the same bytes on the card as on the CPU.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -154,34 +156,109 @@ def test_every_cluster_size_gives_the_same_permutation(dev, n, C):
                        auto_ops.automorphism_eager_plain(x, perms[0]))
 
 
-@pytest.mark.parametrize("logN", [10, 11, 16])
-@pytest.mark.parametrize("split", ["2", "balanced", "N/2"])
-def test_ntt_kernel(dev, logN, split):
-    """Forward and inverse against the plain four-step at the same R, on
-    inputs in [0, 2q), with several leading dims, ℓ = 1 and a strided view."""
-    n = 1 << logN
-    R = {"2": 2, "balanced": nttm.balanced_submodules(n), "N/2": n // 2}[split]
-    basis = tuple(rns.gen_ntt_primes(3, n))
-    gen = torch.Generator(device=dev).manual_seed(logN)
+# Every cluster size the NTT's plan allows at each (log N, split): the
+# two-pass kernel's nine cases, each at every valid cluster size.
+NTT_SPLITS = {"2": lambda n: 2, "balanced": nttm.balanced_submodules,
+              "N/2": lambda n: n // 2}
+NTT_CASES = [(logN, split, c) for logN in (10, 11, 16) for split in NTT_SPLITS
+             for c in ntt_ops.CLUSTER_SIZES
+             if ntt_ops.cluster_ok(1 << logN, NTT_SPLITS[split](1 << logN), c)]
+
+
+def lazy_residues(basis, lead, n, dev, seed):
+    """(*lead, ℓ, n) int32 values in [0, 2q), some of them ≥ q."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     q = const_cache.device_q(basis, dev)
-    x = (torch.randint(0, 2 ** 62, (2, 3, n), generator=gen, device=dev,
-                       dtype=torch.int64) % (2 * q)).to(torch.int32)
+    x = (torch.randint(0, 2 ** 62, (*lead, len(basis), n), generator=gen,
+                       device=dev, dtype=torch.int64) % (2 * q)).to(torch.int32)
     assert bool((x.to(torch.int64) >= q).any())
+    return x, q
+
+
+@pytest.mark.parametrize("logN,split,cluster", NTT_CASES)
+def test_ntt_kernel(dev, logN, split, cluster):
+    """Forward and inverse against the plain four-step at the same R, on
+    inputs in [0, 2q), with several leading dims, ℓ = 1 and a strided view,
+    at every cluster size the split allows."""
+    n = 1 << logN
+    R = NTT_SPLITS[split](n)
+    basis = tuple(rns.gen_ntt_primes(3, n))
+    x, q = lazy_residues(basis, (2,), n, dev, seed=logN)
     fc = const_cache.device_four_step_consts(basis, n, R, dev)
     config.reset_launches()
-    got = ntt_ops.ntt_fwd(x, basis, R=R)
+    got = ntt_ops.ntt_fwd(x, basis, R=R, cluster=cluster)
     assert config.kernel_launch_counts() == {"ntt_fwd": 1}
     assert torch.equal(got, ntt_ops.ntt_plain(x, fc, True))
     assert torch.equal(got, nttm.ntt(x, const_cache.device_ntt_consts(basis, n, dev)))
-    back = ntt_ops.ntt_inv(got, basis, R=R)
+    back = ntt_ops.ntt_inv(got, basis, R=R, cluster=cluster)
     assert torch.equal(back, (x.to(torch.int64) % q).to(torch.int32))
-    assert torch.equal(ntt_ops.ntt_inv(x, basis, R=R), ntt_ops.ntt_plain(x, fc, False))
+    assert torch.equal(ntt_ops.ntt_inv(x, basis, R=R, cluster=cluster),
+                       ntt_ops.ntt_plain(x, fc, False))
     top = x[:, -1:, :]                                  # ℓ = 1, strided view
     assert not top.is_contiguous()
     fc1 = const_cache.device_four_step_consts(basis[-1:], n, R, dev)
     for fwd in (True, False):
         f = ntt_ops.ntt_fwd if fwd else ntt_ops.ntt_inv
-        assert torch.equal(f(top, basis[-1:], R=R), ntt_ops.ntt_plain(top, fc1, fwd))
+        assert torch.equal(f(top, basis[-1:], R=R, cluster=cluster),
+                           ntt_ops.ntt_plain(top, fc1, fwd))
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1 << 16])
+@pytest.mark.parametrize("R", [2, 4, 8])
+def test_ntt_stages_across_ctas_alone(dev, n, R):
+    """R = cluster: each CTA holds one row, so every column stage pairs CTAs
+    through distributed shared memory and none is local."""
+    basis = tuple(rns.gen_ntt_primes(2, n))
+    x, q = lazy_residues(basis, (3,), n, dev, seed=R)
+    fc = const_cache.device_four_step_consts(basis, n, R, dev)
+    got = ntt_ops.ntt_cuda(x, fc, True, R)
+    assert torch.equal(got, ntt_ops.ntt_plain(x, fc, True))
+    assert torch.equal(ntt_ops.ntt_cuda(got, fc, False, R),
+                       (x.to(torch.int64) % q).to(torch.int32))
+    assert torch.equal(ntt_ops.ntt_cuda(x, fc, False, R), ntt_ops.ntt_plain(x, fc, False))
+
+
+def graph_node_types(fn):
+    """The types of the nodes one call of ``fn`` enqueues (0: kernel),
+    captured into a CUDA graph and read back with the runtime's graph API."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert rt.cudaGraphGetNodes(raw, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+def test_ntt_kernel_is_one_launch_without_scratch(dev, fwd):
+    """One call: one kernel on the card and nothing else, and no device
+    memory but its output."""
+    n = 1 << 16
+    basis = tuple(rns.gen_ntt_primes(3, n))
+    x, _ = lazy_residues(basis, (2,), n, dev, seed=1)
+    R = nttm.balanced_submodules(n)
+    fc = const_cache.device_four_step_consts(basis, n, R, dev)
+    cluster = ntt_ops.cluster_plan(n, R)
+    want = ntt_ops.ntt_plain(x, fc, fwd)
+    ntt_ops.ntt_cuda(x, fc, fwd, cluster)                # built and warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = ntt_ops.ntt_cuda(x, fc, fwd, cluster)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    assert extra == got.numel() * 4, f"{extra} bytes for a {got.numel() * 4}-byte output"
+    assert torch.equal(got, want)
+    assert graph_node_types(lambda: ntt_ops.ntt_cuda(x, fc, fwd, cluster)) == [0]
 
 
 def test_to_ntt_on_the_card_runs_the_kernel(dev):
