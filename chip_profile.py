@@ -16,7 +16,10 @@ op under ``torch.profiler`` and prints one JSON line per op:
 * ``by_group`` — device ms of the port's CUDA kernels (EFU, BConvU, the NTT
   forward and inverse, AutoU∘KS, the single and multi-permutation) and of the
   plain torch kernels around them (ring ops, stacking, limb reorders), and
-  the top torch kernels by name.
+  the top torch kernels by name;
+* ``remainder_kernels`` — how many of the op's kernels are torch's integer
+  ``%`` (the plain ``mulmod``s, and before BConvU took in its q̂⁻¹
+  pre-scale, one per BConv launch).
 
 The Chrome traces go to ``--trace-dir`` (default ``build/profile``).
 Fails without CUDA.  Imports nothing of JAX.
@@ -65,6 +68,7 @@ def summarize(kernels: list[dict], wall_ms: float, profiled_wall_ms: float) -> d
     return {"wall_ms": wall_ms, "profiled_wall_ms": profiled_wall_ms,
             "busy_ms": busy_us / 1e3,
             "idle_share": 1 - busy_us / 1e3 / wall_ms, "kernels": len(kernels),
+            "remainder_kernels": sum("remainder" in e["name"] for e in kernels),
             "by_group_ms": dict(by_group), "top_torch_kernels_ms": dict(top)}
 
 

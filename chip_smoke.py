@@ -9,7 +9,8 @@ with ``nvcc`` and runs, each phase printing one JSON line:
 1. device   — the card (fails without CUDA), ``nvidia-smi`` name/power limit;
 2. build    — one ``nvcc`` per kernel source, all at once, and ptxas's
               report (registers, shared memory, spills) of the cluster
-              permutation kernel and of the one-pass NTT kernels;
+              permutation kernel, the one-pass NTT kernels, BConvU and
+              AutoU∘KS;
 3. kernels  — each kernel against its plain torch version on the card at the
               shapes the ``paper_full`` pipeline gives it (N = 2¹⁶, L = 48,
               K = 12, dnum = 4): bit-equal, with kernel / plain / library
@@ -17,7 +18,9 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               the fused plain transform, round trip included, on inputs in
               [0, 2q), and at every cluster size its split allows (one launch
               per transform, each limb held in a thread-block cluster's
-              shared memory); the NTT, multi-permutation and eager kernels
+              shared memory); BConvU as the whole conversion (pre-scale
+              included) against the plain one, also at several shares of the
+              destination primes per CTA; the NTT, multi-permutation and eager kernels
               also with their cluster size and shared memory per CTA, and the
               eager kernel on index tables whose reads are local, remote in
               order, or scattered;
@@ -30,8 +33,8 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               plaintext math must be < 1e-2; each op runs with the launch
               counts reset just before it and read just after, and every
               kernel of the path must have launched, the NTT in every op;
-              no plain NTT, plain gather, plain multi-permutation or plain
-              AutoU∘KS may run on card data;
+              no plain NTT, plain gather, plain multi-permutation, plain
+              AutoU∘KS or plain BConv table product may run on card data;
 6. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               (R × cluster size) and the single permutation at N = 2¹⁶,
               ℓ = 48, its cache in a temporary directory;
@@ -140,9 +143,11 @@ def ptxas_report(log: str, kernel: str) -> list[str]:
 
 # Kernels whose ptxas report (registers, spills, shared memory) the build
 # phase prints: (source, entry-function name); the NTT kernels are templates
-# on the cluster size, so each reports one entry per size.
+# on the cluster size and BConvU on ℓ, so each reports one entry per
+# instantiation.
 PTXAS_KERNELS = (("automorphism", "perm_cluster_kernel"), ("ntt", "ntt_fwd_kernel"),
-                 ("ntt", "ntt_inv_kernel"))
+                 ("ntt", "ntt_inv_kernel"), ("bconv", "bconv_kernel"),
+                 ("automorphism", "auto_ks_kernel"))
 
 
 def phase_build():
@@ -218,19 +223,25 @@ def phase_kernels(params):
          lambda *a: elt_ops.eltwise_plain("mac", q, *a), x4,
          nbytes=5 * x4[0].numel() * 4, ops=5 * x4[0].numel())
 
-    # BConvU: ModUp of one digit (α = 12 limbs → 36 + 12 = 48) and the
-    # stacked ModDown of a hoisted pair of rotations (4 × 12 → 46)
+    # BConvU, the whole conversion (pre-scale in the kernel): ModUp of one
+    # digit (α = 12 limbs → 36 + 12 = 48) and the stacked ModDown of a
+    # hoisted pair of rotations (4 × 12 → 46).  Bytes: x read once, out
+    # written once, the u32 table and the per-prime constants the kernel reads
+    # (q, q̂⁻¹ as int64 and its u32 Shoup companion per source; p as int64
+    # and ⌊2⁶⁴/p⌋ per destination)
     for name, src_b, dst_b, B in (
             ("bconv_moddown_4x12_to_46", params.p, params.q[:L - 2], 4),
             ("bconv_modup_1x12_to_48", params.q[:12], params.q[12:L] + params.p, 1)):
-        c = const_cache.device_bconv_consts(src_b, dst_b, dev)
-        t = residues(src_b, (B,), N, gen)
+        x = residues(src_b, (B,), N, gen)
         ell, k = len(src_b), len(dst_b)
+        resident = bconv_ops.resident_ctas(ell, dev)
         case("bconvu", name, "bconv", src + "bconv.cu", "src/repro/kernels/bconv/kernel.py:59",
-             lambda a: bconv_ops.bconv_matmul_cuda(a, c.table, c.q_dst),
-             lambda a: bconv_ops.bconv_matmul_plain(a, c.table, c.q_dst), [t],
-             nbytes=(B * ell * N + B * k * N) * 4 + k * ell * 8,
-             ops=2 * B * k * ell * N)
+             lambda a, s=src_b, d=dst_b: bconv_ops.bconv_cuda(a, s, d),
+             lambda a, s=src_b, d=dst_b: bconv_ops.bconv_plain(a, s, d), [x],
+             nbytes=(B * ell * N + B * k * N + k * ell) * 4 + ell * 20 + k * 16,
+             ops=2 * B * k * ell * N,
+             info={"chunk": bconv_ops.chunk_plan(B, k, N, resident),
+                   "resident_ctas": resident})
 
     # AutoU∘KS: hoisted digits (dnum=4, G=1, ℓ+K = 46+12 = 58) × 2 rotations
     gs = (pl.galois_elt(1, N), pl.galois_elt(4, N))
@@ -243,10 +254,12 @@ def phase_kernels(params):
     qx = const_cache.device_q(ext_basis, dev)
     case("auto_ks", "auto_ks_J4_G1_R2_L58", "auto_ks", src + "automorphism.cu",
          "src/repro/kernels/automorphism/kernel.py:175",
-         lambda e, a, b: auto_ops.auto_ks_cuda(e, a, b, perms, qx),
+         lambda e, a, b: auto_ops.auto_ks_cuda(e, a, b, gs, ext_basis),
          lambda e, a, b: auto_ops.auto_ks_plain(e, a, b, perms, qx),
          [exts, evk_a, evk_b],
-         nbytes=(J * Lx * N + 2 * R * J * Lx * N + 2 * R * Lx * N) * 4 + R * N * 8,
+         # bytes: digits, keys and outputs once each, two u32 words of the
+         # Galois map per rotation, q (int64) and ⌊2⁶⁴/q⌋ per limb
+         nbytes=(J * Lx * N + 2 * R * J * Lx * N + 2 * R * Lx * N + 2 * R) * 4 + Lx * 16,
          ops=4 * R * J * Lx * N)
 
     # the cluster plan the multi-permutation and eager wrappers take at N
@@ -389,18 +402,21 @@ def _sync_for(device):
 
 @contextlib.contextmanager
 def plain_calls_on_card():
-    """Count the calls of the NTT's and the AutoU kernels' plain versions on
-    CUDA data while the block runs (the main path must make none): the fused
-    plain transform, the plain four-step, the plain single, eager and
-    multi-permutation gathers, the plain AutoU∘KS."""
+    """Count the calls of the NTT's, the AutoU kernels' and BConvU's plain
+    versions on CUDA data while the block runs (the main path, on the kernel
+    BConv engine, must make none): the fused plain transform, the plain
+    four-step, the plain single, eager and multi-permutation gathers, the
+    plain AutoU∘KS, the plain BConv table product."""
     from repro_torch.core import ntt as nttm
     from repro_torch.kernels.automorphism import ops as auto_ops
+    from repro_torch.kernels.bconv import ops as bconv_ops
     calls = collections.Counter()
     saved = [(mod, name, getattr(mod, name)) for mod, name in (
         (nttm, "ntt"), (nttm, "intt"), (nttm, "four_step_ntt"),
         (nttm, "four_step_intt"), (auto_ops, "automorphism_plain"),
         (auto_ops, "automorphism_eager_plain"),
-        (auto_ops, "automorphism_multi_plain"), (auto_ops, "auto_ks_plain"))]
+        (auto_ops, "automorphism_multi_plain"), (auto_ops, "auto_ks_plain"),
+        (bconv_ops, "bconv_matmul_plain"))]
 
     def counted(name, fn):
         def wrapper(x, *args, **kwargs):
@@ -589,6 +605,15 @@ DESIGN = {
                "memory",
     "automorphism_multi": "perm_cluster_kernel: each limb row staged once by "
                           "the TMA across a thread-block cluster",
+    "bconvu": "the q̂⁻¹ pre-scale fused in: each thread reads its ℓ source "
+              "words once (16-byte loads), Shoup-scales them in registers and "
+              "runs its chunk of destination primes against a table staged in "
+              "shared memory, one Barrett per output",
+    "auto_ks": "limb-major grid, every rotation of a limb in one thread (two "
+               "at a time inside the loop over the digits), so the hoisted "
+               "digits cross device memory once; the Galois map computed in "
+               "registers from its affine form; 16-byte evk loads and stores, "
+               "one Barrett per output",
 }
 DESIGN["ntt_inv"] = DESIGN["ntt_fwd"]
 DESIGN["automorphism_eager"] = DESIGN["automorphism_multi"]
@@ -611,7 +636,8 @@ def kernel_table(rows, launches):
                       "cases": [{k: c[k] for k in (
                           "name", "shape", "equal", "max_abs_err", "ms",
                           "plain_ms", "bound_ms", "bound_by", "library_ms",
-                          "R", "cluster", "smem_bytes_per_cta", "ms_by_cluster")
+                          "R", "cluster", "smem_bytes_per_cta", "ms_by_cluster",
+                          "chunk", "resident_ctas")
                           if k in c} for c in cases]})
     return table
 

@@ -12,9 +12,13 @@ Host-side table *generation* stays in :mod:`repro_torch.core.rns` /
 :mod:`repro_torch.core.ntt` (numpy + Python ints, lru-cached); this cache is
 purely the numpy → device staging layer.  Residue tables are staged as int64
 (the arithmetic type of :mod:`repro_torch.core.modmath`), index tables as
-int64 (what ``index_select`` takes).  The exception is the four-step NTT
-kernel's tables (:func:`device_four_step_consts`): they stay u32 bit patterns
-in int32 tensors, half the bytes the kernel has to read.
+int64 (what ``index_select`` takes).  The exceptions are the kernels' own
+operands, u32 bit patterns in int32 tensors: the four-step NTT tables
+(:func:`device_four_step_consts`, half the bytes the kernel has to read), the
+BConvU kernel's Shoup companions and table (:class:`BConvConsts`) and the
+affine Galois maps of the fused AutoU∘KS kernel
+(:func:`device_galois_affine`); the kernels' Barrett constants ⌊2⁶⁴/q⌋ are
+int64 (:func:`device_barrett`).
 """
 from __future__ import annotations
 
@@ -137,23 +141,47 @@ def device_q(basis: tuple[int, ...], device) -> torch.Tensor:
 
 
 class BConvConsts(NamedTuple):
-    """Device-resident constants for one {src}→{dst} base conversion."""
+    """Device-resident constants for one {src}→{dst} base conversion: int64
+    columns for the plain version, u32 bits (int32) and Barrett constants
+    for the BConvU kernel."""
     q_src: torch.Tensor           # (ℓ, 1) — source primes
     qhat_inv: torch.Tensor        # (ℓ, 1) — (Q/q_i)⁻¹ mod q_i
     table: torch.Tensor           # (K, ℓ) — Q/q_i mod p_j
     q_dst: torch.Tensor           # (K, 1) — destination primes
+    qhat_inv_shoup: torch.Tensor  # (ℓ,) u32 bits — ⌊qhat_inv·2³²/q_i⌋
+    table_u32: torch.Tensor       # (K, ℓ) u32 bits — the table
+    barrett: torch.Tensor         # (K,) — ⌊2⁶⁴/p_j⌋
+
+
+def barrett_consts(primes: tuple[int, ...]) -> np.ndarray:
+    """⌊2⁶⁴/p⌋ per prime: the kernels' Barrett constant (common.cuh), < 2⁶³
+    for every odd prime, so it fits an int64."""
+    return np.array([(1 << 64) // p for p in primes], dtype=np.int64)
 
 
 def device_bconv_consts(src: tuple[int, ...], dst: tuple[int, ...],
                         device) -> BConvConsts:
     """BConv tables staged once per (src, dst, device)."""
     src, dst = tuple(src), tuple(dst)
+    dev = device_of(device)
 
-    def build():
+    def stage():
         tab = rns.bconv_tables(src, dst)
-        return (np.array(src).reshape(-1, 1), tab.qhat_inv.reshape(-1, 1),
-                tab.table, np.array(dst).reshape(-1, 1))
-    return BConvConsts(*device_table(("bconv", src, dst), build, device))
+        return BConvConsts(
+            q_src=_stage(np.array(src).reshape(-1, 1), dev),
+            qhat_inv=_stage(tab.qhat_inv.reshape(-1, 1), dev),
+            table=_stage(tab.table, dev),
+            q_dst=_stage(np.array(dst).reshape(-1, 1), dev),
+            qhat_inv_shoup=_stage(tab.qhat_inv_shoup, dev, u32_bits=True),
+            table_u32=_stage(tab.table, dev, u32_bits=True),
+            barrett=_stage(barrett_consts(dst), dev))
+    return _cache.get((("bconv", src, dst), str(dev)), stage)
+
+
+def device_barrett(basis: tuple[int, ...], device) -> torch.Tensor:
+    """⌊2⁶⁴/q⌋ per prime of a basis as an (ℓ,) int64, staged once."""
+    return device_table(("barrett", tuple(basis)),
+                        lambda: barrett_consts(tuple(basis)), device)
 
 
 def device_galois_perm(N: int, g: int, device) -> torch.Tensor:
@@ -166,8 +194,21 @@ def device_galois_perm(N: int, g: int, device) -> torch.Tensor:
 
 def device_galois_perm_stack(N: int, gs: tuple, device) -> torch.Tensor:
     """Stacked (R, N) int64 perm table for a rotation *set* — the operand of
-    the multi-perm / fused AutoU∘KS kernels, staged once per (N, gs)."""
+    the multi-perm kernel and of the plain AutoU∘KS, staged once per (N, gs)."""
     def build():
         from . import poly
         return np.stack([poly.automorphism_perm(N, g) for g in gs])
     return device_table(("galois_perm_stack", N, tuple(gs)), build, device)
+
+
+def device_galois_affine(N: int, gs: tuple, device) -> torch.Tensor:
+    """The affine form of each Galois map of a rotation set, (R, 2) u32 bits
+    in int32 — the fused AutoU∘KS kernel's operand, which computes
+    perm[k] = (a·k + c) mod N from each row (a, c); staged once per (N, gs)."""
+    dev = device_of(device)
+
+    def stage():
+        from . import poly
+        return _stage(np.array([poly.galois_affine(N, g) for g in gs],
+                               dtype=np.int64).reshape(-1, 2), dev, u32_bits=True)
+    return _cache.get((("galois_affine", N, tuple(gs)), str(dev)), stage)

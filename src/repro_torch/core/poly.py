@@ -170,6 +170,17 @@ def automorphism_perm(N: int, g: int) -> np.ndarray:
     return ((((2 * k + 1) * g) % (2 * N) - 1) // 2).astype(np.int32)
 
 
+def galois_affine(N: int, g: int) -> tuple[int, int]:
+    """(a, c) with automorphism_perm(N, g)[k] = (a·k + c) mod N, for odd g and
+    a power-of-two N: 2k' + 1 = (2k + 1)·g mod 2N gives k' = g·k + (g − 1)/2
+    mod N.  Both are reduced mod N, so 32-bit arithmetic that wraps mod 2³²
+    (a multiple of N) computes the map."""
+    if g % 2 == 0 or N < 1 or N & (N - 1):
+        raise ValueError(f"Galois element {g} at N = {N}: needs an odd g and "
+                         f"a power-of-two N")
+    return g % N, (g - 1) // 2 % N
+
+
 @functools.lru_cache(maxsize=None)
 def automorphism_perm_coeff(N: int, g: int) -> tuple[np.ndarray, np.ndarray]:
     """Coefficient-domain map: X^j → ±X^{j·g mod N}; returns (dst index, sign flip)."""

@@ -4,7 +4,8 @@ wrappers.
 
 Permutation tables are device-resident int64 index vectors from
 :mod:`repro_torch.core.const_cache`: (N,) per Galois element, (R, N) per
-rotation set, staged once per device.  The single-permutation kernel's
+rotation set, staged once per device.  The fused AutoU∘KS kernel reads none:
+it computes each Galois map from its affine form (two words per rotation).  The single-permutation kernel's
 ``rows_per_cta`` resolves through
 :func:`repro_torch.kernels.autotune.best_config` when the caller pins none.
 The multi-permutation and eager kernels are one thread-block-cluster kernel
@@ -182,12 +183,10 @@ def auto_ks(exts: torch.Tensor, evk_a: torch.Tensor, evk_b: torch.Tensor,
     G ∈ {1, R}; evk_a/evk_b (R, J, L, N) level-sliced digit keys →
     (R, 2, L, N): [r, 0] is ka, [r, 1] is kb of rotation r.
     """
-    kernel = native.on_cuda(exts, evk_a, evk_b)
+    if native.on_cuda(exts, evk_a, evk_b):
+        return auto_ks_cuda(exts, evk_a, evk_b, tuple(gs), tuple(basis))
     perms = const_cache.device_galois_perm_stack(N, tuple(gs), exts.device)
     q = const_cache.device_q(tuple(basis), exts.device)
-    if kernel:
-        return auto_ks_cuda(exts.contiguous(), evk_a.contiguous(),
-                            evk_b.contiguous(), perms, q)
     return auto_ks_plain(exts, evk_a, evk_b, perms, q)
 
 
@@ -207,23 +206,31 @@ def auto_ks_plain(exts, evk_a, evk_b, perms, q) -> torch.Tensor:
     return torch.stack(out).to(torch.int32)
 
 
-def auto_ks_cuda(exts, evk_a, evk_b, perms, q) -> torch.Tensor:
-    """Launch the fused AutoU∘KS kernel (``csrc/automorphism.cu``)."""
+def auto_ks_cuda(exts: torch.Tensor, evk_a: torch.Tensor, evk_b: torch.Tensor,
+                 gs: tuple, basis: tuple[int, ...]) -> torch.Tensor:
+    """Launch the fused AutoU∘KS kernel (``csrc/automorphism.cu``): limb-major,
+    each Galois map computed from its affine form
+    (:func:`repro_torch.core.poly.galois_affine`; N a power of two)."""
+    exts, evk_a, evk_b = exts.contiguous(), evk_a.contiguous(), evk_b.contiguous()
     J, G, L, N = exts.shape
-    R = perms.shape[0]
+    R = len(gs)
     _check_batch(G, R)
     native.require({"exts": exts, "evk_a": evk_a, "evk_b": evk_b},
                    torch.int32, exts.device)
-    native.require({"perms": perms, "q": q}, torch.int64, exts.device)
     if (evk_a.shape != (R, J, L, N) or evk_b.shape != (R, J, L, N)
-            or perms.shape != (R, N) or q.numel() != L):
+            or len(basis) != L):
         raise ValueError(f"auto_ks: exts {tuple(exts.shape)}, evk "
-                         f"{tuple(evk_a.shape)}/{tuple(evk_b.shape)}, perms "
-                         f"{tuple(perms.shape)}, {q.numel()} primes")
-    out = torch.empty((R, 2, L, N), dtype=torch.int32, device=exts.device)
+                         f"{tuple(evk_a.shape)}/{tuple(evk_b.shape)}, {R} "
+                         f"rotations, {len(basis)} primes")
+    dev = exts.device
+    galois = const_cache.device_galois_affine(N, tuple(gs), dev)
+    q = const_cache.device_q(tuple(basis), dev)
+    mu = const_cache.device_barrett(tuple(basis), dev)
+    out = torch.empty((R, 2, L, N), dtype=torch.int32, device=dev)
     err = native.lib("automorphism").auto_ks_launch(
-        exts.data_ptr(), evk_a.data_ptr(), evk_b.data_ptr(), perms.data_ptr(),
-        q.data_ptr(), out.data_ptr(), J, G, R, L, N, native.stream_of(exts))
+        exts.data_ptr(), evk_a.data_ptr(), evk_b.data_ptr(), galois.data_ptr(),
+        q.data_ptr(), mu.data_ptr(), out.data_ptr(), J, G, R, L, N,
+        native.stream_of(exts))
     native.check("automorphism", err, "auto_ks")
     config.count_launch("auto_ks", "auto_ks")
     return out

@@ -10,14 +10,32 @@
 // with g = 0 when exts is shared by all R rotations (G = 1, hoisting) and
 // g = r when each rotation has its own decomposition (G = R).  No permuted
 // digit is written to memory: the permutation is a gather inside the MAC.
-// One thread per output (r, i, k); the gather reads global memory directly
-// and the 50 MB L2 carries it: the J·L·N·4 B of hoisted digits (3.6 MB per
-// digit at the paper's L = 58) stay L2-resident while the R rotations'
-// threads sweep them.  Bound: bytes (the digits once, both evk halves,
-// 2·R·L·N words out, for 2·R·J·L·N modular products).  evk reads and all
-// writes are coalesced; the u64 accumulator is reduced every 15 products
-// (common.cuh), with one `%` per output at the end.
 //
+// Bound on the H100: bytes — the digits once (J·G·L·N words), both evk
+// halves (2·R·J·L·N), 2·R·L·N words out: (4, 1, 58, N) × 2 rotations is
+// 365 MB, 0.109 ms at 3.35 TB/s, two thirds of it the evk halves.  The
+// hoisted digits alone are 61 MB at L = 58, more than the 50 MB L2, so a
+// rotation-major order reads them from device memory once per rotation.
+// Design response:
+//
+//   - limb-major: grid (N / 1024, L), 256 threads; each thread owns four
+//     consecutive k of limb i and runs every rotation, so all rotations of
+//     limb i run while its J digit rows (J·N words, 1 MB at N = 2^16, J = 4)
+//     are in L2, and the digits cross device memory once; the rotations go
+//     two at a time inside the loop over the digits, so a pair gathers from
+//     one digit row together;
+//   - the Galois map is computed in registers: perm_r[k] = (g_r·k + (g_r −
+//     1)/2) mod N for a power-of-two N, in 32-bit arithmetic from the two
+//     per-rotation words (g_r mod N, (g_r − 1)/2 mod N) — no index table;
+//   - evk_a / evk_b are read as 16-byte streaming loads (read once, first out
+//     of L2) and the outputs written as 16-byte stores;
+//   - u64 accumulators (one IMAD.WIDE.U32 a product, common.cuh's Acc64),
+//     a Barrett reduction every 15 digits and one per output, with per-limb
+//     constants: no division.
+//
+// What remains is the gather: each 4-byte word of a digit costs a 32-byte
+// L2 sector, and a warp's words lie g apart (5 and 625 for rotations 1 and
+// 4), so L2 carries several times the digits' bytes.
 // automorphism_rows replaces
 // src/repro/kernels/automorphism/kernel.py:automorphism_pallas:
 //
@@ -76,40 +94,85 @@
 
 namespace {
 
-__global__ void auto_ks_kernel(const uint32_t* __restrict__ exts,
-                               const uint32_t* __restrict__ evk_a,
-                               const uint32_t* __restrict__ evk_b,
-                               const int64_t* __restrict__ perms,
-                               const int64_t* __restrict__ q,
-                               uint32_t* __restrict__ out,
-                               int J, int G, int R, int L, int N) {
-  long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+constexpr int kAutoKsThreads = 256;
+
+// One thread per four consecutive k of limb blockIdx.y (see the header
+// note); galois (R, 2): g_r mod N and (g_r − 1)/2 mod N; N a power of two.
+// The rotations go two at a time, inside the loop over the digits, so both
+// of a pair gather from digit row j while it is hot and a thread keeps eight
+// gathers and four 16-byte evk loads in flight per digit.  One CTA per SM
+// is the stated minimum: without it ptxas caps the registers to fit three
+// and spills, which is slower than two CTAs with every value in registers.
+__global__ void __launch_bounds__(kAutoKsThreads, 1)
+auto_ks_kernel(const uint32_t* __restrict__ exts, const uint32_t* __restrict__ evk_a,
+               const uint32_t* __restrict__ evk_b, const uint32_t* __restrict__ galois,
+               const int64_t* __restrict__ q, const uint64_t* __restrict__ mu,
+               uint32_t* __restrict__ out, int J, int G, int R, int L, int N, int vec) {
+  const int i = blockIdx.y;
+  const int k = (static_cast<int>(blockIdx.x) * kAutoKsThreads + static_cast<int>(threadIdx.x)) * 4;
+  if (k >= N) return;
+  const int left = N - k;
+  const uint32_t mask = static_cast<uint32_t>(N) - 1;
+  const uint32_t qi = static_cast<uint32_t>(q[i]);
+  const uint64_t mi = mu[i];
   const long long LN = static_cast<long long>(L) * N;
-  if (idx >= R * LN) return;
-  const int k = static_cast<int>(idx % N);
-  const int i = static_cast<int>((idx / N) % L);
-  const int r = static_cast<int>(idx / LN);
-  const int g = (G == 1) ? 0 : r;
-  const long long src_k = perms[static_cast<long long>(r) * N + k];
-  const uint64_t qi = static_cast<uint64_t>(q[i]);
-  uint64_t acc_a = 0, acc_b = 0;
-  int pending = 0;
-  for (int j = 0; j < J; ++j) {
-    const uint64_t e =
-        exts[(static_cast<long long>(j) * G + g) * LN + i * static_cast<long long>(N) + src_k];
-    const long long off = (static_cast<long long>(r) * J + j) * LN +
-                          i * static_cast<long long>(N) + k;
-    acc_a += e * evk_a[off];
-    acc_b += e * evk_b[off];
-    if (++pending == repro::kReduceEvery) {
-      acc_a %= qi;
-      acc_b %= qi;
-      pending = 0;
+  for (int r0 = 0; r0 < R; r0 += 2) {
+    const int pair = min(2, R - r0);
+    uint32_t src[2][4];
+    const uint32_t* e[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + min(h, pair - 1);
+      const uint32_t g = galois[2 * r], c = galois[2 * r + 1];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) src[h][v] = (g * static_cast<uint32_t>(k + v) + c) & mask;
+      e[h] = exts + (G == 1 ? 0 : r) * LN + static_cast<long long>(i) * N;
+    }
+    repro::Acc64 acc_a[2][4], acc_b[2][4];
+    int pending = 0;
+#pragma unroll 2
+    for (int j = 0; j < J; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h >= pair) break;
+        const uint32_t* ej = e[h] + j * G * LN;
+        const long long koff = (static_cast<long long>(r0 + h) * J + j) * LN +
+                               static_cast<long long>(i) * N + k;
+        uint32_t a[4], b[4];
+        repro::load4<true>(a, evk_a + koff, left, vec);
+        repro::load4<true>(b, evk_b + koff, left, vec);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const uint32_t w = __ldg(ej + src[h][v]);
+          acc_a[h][v].mac(w, a[v]);
+          acc_b[h][v].mac(w, b[v]);
+        }
+      }
+      if (++pending == repro::kReduceEvery) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            acc_a[h][v] = {repro::barrett(acc_a[h][v].value(), qi, mi), 0};
+            acc_b[h][v] = {repro::barrett(acc_b[h][v].value(), qi, mi), 0};
+          }
+        pending = 0;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h >= pair) break;
+      uint32_t oa[4], ob[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        oa[v] = repro::barrett(acc_a[h][v].value(), qi, mi);
+        ob[v] = repro::barrett(acc_b[h][v].value(), qi, mi);
+      }
+      uint32_t* o = out + 2 * (r0 + h) * LN + static_cast<long long>(i) * N + k;
+      repro::store4(o, oa, left, vec);
+      repro::store4(o + LN, ob, left, vec);
     }
   }
-  const long long o = (static_cast<long long>(r) * 2) * LN + i * static_cast<long long>(N) + k;
-  out[o] = static_cast<uint32_t>(acc_a % qi);
-  out[o + LN] = static_cast<uint32_t>(acc_b % qi);
 }
 
 __global__ void perm_rows_kernel(const uint32_t* __restrict__ x,
@@ -168,10 +231,6 @@ perm_cluster_kernel(const uint32_t* __restrict__ x,
   cluster.sync();
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // Launch perm_cluster_kernel with clusters of C CTAs holding windows of S
 // words at stride T over the G·L source rows.  Returns the CUDA error of a
 // refused plan or launch; never launches anything else.
@@ -201,8 +260,8 @@ int launch_perm_cluster(const void* x, const void* perms, void* out, int G,
   cudaError_t err = repro::prepare_cluster_launch(perm_cluster_kernel, cfg, state, C, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int chunk = ((N + C - 1) / C + 3) / 4 * 4;
-  const int vec = N % 4 == 0 && S % 4 == 0 && aligned16(x) && aligned16(perms) &&
-                  aligned16(out);
+  const int vec = N % 4 == 0 && S % 4 == 0 && repro::aligned16(x) && repro::aligned16(perms) &&
+                  repro::aligned16(out);
   int stride_log2 = 0;
   while ((1 << stride_log2) < T) ++stride_log2;
   err = cudaLaunchKernelEx(&cfg, perm_cluster_kernel,
@@ -216,20 +275,25 @@ int launch_perm_cluster(const void* x, const void* perms, void* out, int G,
 
 }  // namespace
 
-// exts (J, G, L, N) u32, evk_a/evk_b (R, J, L, N) u32, perms (R, N) int64,
-// q (L,) int64 → out (R, 2, L, N) u32.
+// exts (J, G, L, N) u32, evk_a/evk_b (R, J, L, N) u32, galois (R, 2) u32
+// (g_r mod N, (g_r − 1)/2 mod N), q (L,) int64, mu (L,) u64 = ⌊2⁶⁴/q_i⌋ →
+// out (R, 2, L, N) u32.  N a power of two ≥ 4.
 extern "C" int auto_ks_launch(const void* exts, const void* evk_a,
-                              const void* evk_b, const void* perms,
-                              const void* q, void* out, int J, int G, int R,
-                              int L, int N, void* stream) {
-  const long long total = static_cast<long long>(R) * L * N;
-  if (total <= 0) return 0;
-  auto_ks_kernel<<<repro::grid_for(total), repro::kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+                              const void* evk_b, const void* galois,
+                              const void* q, const void* mu, void* out, int J,
+                              int G, int R, int L, int N, void* stream) {
+  if (J <= 0 || R <= 0 || L <= 0) return 0;
+  if (N < 4 || (N & (N - 1)) != 0 || (G != 1 && G != R) || L > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = repro::aligned16(exts) && repro::aligned16(evk_a) &&
+                  repro::aligned16(evk_b) && repro::aligned16(out);
+  const dim3 grid(static_cast<unsigned>((N / 4 + kAutoKsThreads - 1) / kAutoKsThreads),
+                  static_cast<unsigned>(L));
+  auto_ks_kernel<<<grid, kAutoKsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(exts), static_cast<const uint32_t*>(evk_a),
-      static_cast<const uint32_t*>(evk_b), static_cast<const int64_t*>(perms),
-      static_cast<const int64_t*>(q), static_cast<uint32_t*>(out),
-      J, G, R, L, N);
+      static_cast<const uint32_t*>(evk_b), static_cast<const uint32_t*>(galois),
+      static_cast<const int64_t*>(q), static_cast<const uint64_t*>(mu),
+      static_cast<uint32_t*>(out), J, G, R, L, N, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

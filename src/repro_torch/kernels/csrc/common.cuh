@@ -7,8 +7,9 @@
 //
 // Products of two residues are < 2^60, so up to 15 of them plus a reduced
 // running sum (< 2^30) fit a u64 without overflow: accumulators add raw
-// products and reduce every kReduceEvery terms.  That keeps a sum exact for
-// any number of terms, as the reference's hi16/lo16 column sum is.
+// products and reduce every kReduceEvery terms (Barrett, `barrett` below:
+// no division).  That keeps a sum exact for any number of terms, as the
+// reference's hi16/lo16 column sum is.
 //
 // A limb row larger than one CTA's shared memory (N = 2^16 u32 words is
 // 256 KiB) is staged across a thread-block cluster: stage_cluster_row puts
@@ -31,6 +32,69 @@ constexpr int kMaxSmemPerCta = 227 * 1024;     // Hopper: 232,448 bytes
 
 inline unsigned grid_for(long long total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
+}
+
+// A u64 sum of 32×32-bit products, kept as its two words.  acc.mac(a, b) is
+// one IMAD.WIDE.U32, written as PTX's carry pair (mad.lo.cc / madc.hi): the
+// C++ form `acc += uint64_t(a) * b` compiles to the same instruction plus an
+// add to the high word per product, which a chain of products pays for in
+// issue slots.
+struct Acc64 {
+  uint32_t lo = 0, hi = 0;
+  __device__ __forceinline__ void mac(uint32_t a, uint32_t b) {
+    asm("mad.lo.cc.u32 %0, %2, %3, %0;\n\tmadc.hi.u32 %1, %2, %3, %1;"
+        : "+r"(lo), "+r"(hi) : "r"(a), "r"(b));
+  }
+  __device__ __forceinline__ uint64_t value() const {
+    return (static_cast<uint64_t>(hi) << 32) | lo;
+  }
+};
+
+// x mod p for any u64 x, with mu = ⌊2⁶⁴/p⌋ and 2 < p < 2³⁰ (staged per prime
+// by const_cache.device_barrett).  The quotient estimate keeps three of the
+// four partial products of x·mu/2⁶⁴ (x = xh·2³² + xl, mu = mh·2³² + ml):
+// a = xh·mh + ⌊xh·ml/2³²⌋ + ⌊xl·mh/2³²⌋ falls short of ⌊x/p⌋ by at most 3
+// (the dropped fractions sum to < 2, Barrett's own estimate to < 1), so
+// x − a·p lies in [0, 4p) and its low word is exact; two unsigned-min steps
+// finish.  Four 32-bit multiplies, no division.
+__device__ __forceinline__ uint32_t barrett(uint64_t x, uint32_t p, uint64_t mu) {
+  const uint32_t xh = static_cast<uint32_t>(x >> 32), xl = static_cast<uint32_t>(x);
+  const uint32_t mh = static_cast<uint32_t>(mu >> 32), ml = static_cast<uint32_t>(mu);
+  const uint32_t a = xh * mh + __umulhi(xh, ml) + __umulhi(xl, mh);
+  uint32_t r = xl - a * p;
+  r = min(r, r - 2 * p);
+  return min(r, r - p);
+}
+
+// The four consecutive words p[0..3] as one 16-byte access when `vec` (p
+// 16-byte aligned), else word by word with the words from `left` on masked
+// (left ≥ 1).  kStream loads bypass L1 and go first out of L2 (read once).
+template <bool kStream = false>
+__device__ __forceinline__ void load4(uint32_t (&w)[4], const uint32_t* __restrict__ p,
+                                      int left, bool vec) {
+  if (vec) {
+    const uint4* p4 = reinterpret_cast<const uint4*>(p);
+    const uint4 v = kStream ? __ldcs(p4) : __ldg(p4);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < 4; ++v) w[v] = v < left ? (kStream ? __ldcs(p + v) : __ldg(p + v)) : 0u;
+}
+
+__device__ __forceinline__ void store4(uint32_t* __restrict__ p, const uint32_t (&w)[4],
+                                       int left, bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < 4; ++v)
+    if (v < left) p[v] = w[v];
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // A row of N u32 words staged across a cluster of C CTAs, one window of it

@@ -38,10 +38,11 @@ SIGNATURES = {
         "efu_launch": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
     },
     "bconv": {
-        "bconv_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "bconv_launch": [_P] * 8 + [_I] * 5 + [_P],
+        "bconv_ctas_per_sm": [_I, _I, _P],
     },
     "automorphism": {
-        "auto_ks_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "auto_ks_launch": [_P] * 7 + [_I] * 5 + [_P],
         "automorphism_multi_launch": [_P, _P, _P] + [_I] * 7 + [_P],
         "automorphism_rows_launch": [_P, _P, _P, _LL, _I, _I, _P],
         "automorphism_eager_launch": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],

@@ -264,3 +264,77 @@ def test_const_cache_stages_once():
     const_cache.device_galois_perm_stack(p.N, (5, 25), CPU)
     assert const_cache.stage_events() == before
     assert c1.brev.dtype == torch.int64 and c1.q.shape == (len(p.q), 1)
+
+
+# ------------------------------------------- the kernels' staged constants
+
+def test_bconv_kernel_consts_equal_python_ints():
+    """What the BConvU kernel reads: the Shoup companions of q̂⁻¹ (the
+    reference's qhat_inv_shoup), the table as u32 bits and ⌊2⁶⁴/p_j⌋."""
+    for p in (prm.test_medium(), prm.paper_full()):
+        alpha = len(p.digit_bases(p.L)[0])
+        for src, dst in ((p.q[:alpha], p.q[alpha:] + p.p), (p.p, p.q[:p.L - 2])):
+            c = const_cache.device_bconv_consts(src, dst, CPU)
+            Q = int(np.prod([int(q) for q in src], dtype=object))
+            w = [pow(Q // q % q, -1, q) for q in src]
+            assert u32(c.qhat_inv_shoup).tolist() == [(wi << 32) // q
+                                                      for wi, q in zip(w, src)]
+            np.testing.assert_array_equal(u32(c.qhat_inv_shoup),
+                                          jrns.bconv_tables(src, dst).qhat_inv_shoup)
+            assert u32(c.table_u32).tolist() == [[Q // q % pj for q in src]
+                                                 for pj in dst]
+            assert c.barrett.tolist() == [(1 << 64) // pj for pj in dst]
+    assert const_cache.device_barrett(p.q, CPU).tolist() == [(1 << 64) // q
+                                                              for q in p.q]
+
+
+def kernel_barrett(x, p, mu):
+    """common.cuh's barrett on Python ints, word by word as the kernel: the
+    quotient estimate from three partial products of x·mu/2⁶⁴, the low word
+    of x − a·p, then two unsigned-min steps."""
+    m32 = 0xFFFFFFFF
+    xh, xl, mh, ml = x >> 32, x & m32, mu >> 32, mu & m32
+    a = (xh * mh + (xh * ml >> 32) + (xl * mh >> 32)) & m32
+    r = (xl - a * p) & m32
+    r = min(r, (r - 2 * p) & m32)
+    return min(r, (r - p) & m32)
+
+
+def test_kernel_barrett_is_exact_for_every_paper_prime():
+    """On the edge sums (0, the 15-product sum 15·(q−1)² with and without a
+    reduced carry, 2⁶⁴ − 1), multiples of q and their neighbours, and a
+    random sweep of u64 values and of 15-term sums, for every prime of
+    paper_full."""
+    p = prm.paper_full()
+    rng = np.random.default_rng(0)
+    for q in p.q + p.p:
+        mu = int(const_cache.barrett_consts((q,))[0])
+        top = 15 * (q - 1) ** 2
+        xs = [0, 1, q - 1, q, 2 * q - 1, top, top + q - 1, 2 ** 64 - 1]
+        xs += [int(v) for v in rng.integers(0, 2 ** 64, 64, dtype=np.uint64)]
+        xs += [int(k) * q + d for k in rng.integers(1, 2 ** 64 // q, 16, dtype=np.uint64)
+               for d in (-1, 0, 1)]
+        xs += [sum(int(a) * int(b) for a, b in rng.integers(0, q, (15, 2)))
+               for _ in range(16)]
+        assert all(x < 2 ** 64 and kernel_barrett(x, q, mu) == x % q for x in xs), q
+
+
+def test_galois_affine_form_reproduces_the_perm_table():
+    """(a·k + c) mod N in wrapping u32 arithmetic, as the AutoU∘KS kernel
+    computes it, equals automorphism_perm for the rotations and conjugation
+    the pipeline uses and for random odd g."""
+    rng = np.random.default_rng(1)
+    for N in (1 << 11, 1 << 16):
+        k = np.arange(N, dtype=np.uint32)
+        gs = {pl.galois_elt(r, N) for r in range(-8, 9) if r} | {2 * N - 1}
+        gs |= {int(g) | 1 for g in rng.integers(1, 2 * N, 24)}
+        for g in sorted(gs):
+            a, c = pl.galois_affine(N, g)
+            got = (k * np.uint32(a) + np.uint32(c)) & np.uint32(N - 1)
+            np.testing.assert_array_equal(got, pl.automorphism_perm(N, g))
+            np.testing.assert_array_equal(got, np.asarray(jpl.automorphism_perm(N, g)))
+        staged = const_cache.device_galois_affine(N, tuple(sorted(gs)), CPU)
+        assert u32(staged).tolist() == [list(pl.galois_affine(N, g)) for g in sorted(gs)]
+    for N, g in ((1 << 11, 4), (1000, 5)):
+        with pytest.raises(ValueError):
+            pl.galois_affine(N, g)

@@ -55,30 +55,64 @@ def test_eltwise_kernel(dev, op):
     assert torch.equal(got, elt_ops.eltwise_plain(op, q, *xs))
 
 
-def test_bconv_kernel(dev):
-    dst = tuple(rns.gen_ntt_primes(5, N))
-    src = tuple(rns.gen_ntt_primes(18, N, exclude=dst))
-    x = rand(src, (3,), seed=3)
-    x[0] = np.array(src, dtype=np.uint32)[:, None] - 1      # largest residues
+def residue_words(basis, lead, n, seed):
+    """u32 residues (*lead, ℓ, n), uniform per limb; the first row of the
+    first batch element holds the largest residues q − 1."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([rng.integers(0, q, (*lead, n), dtype=np.int64) for q in basis],
+                 axis=len(lead))
+    x.reshape(-1, len(basis), n)[0] = np.array(basis)[:, None] - 1
+    return x.astype(np.uint32)
+
+
+@pytest.mark.parametrize("n", [1 << 11, 1 << 16])
+@pytest.mark.parametrize("B", [1, 3, 4])
+@pytest.mark.parametrize("K", [1, 5, 46])
+@pytest.mark.parametrize("ell", [1, 10, 12, 15, 16, 18])
+def test_bconv_kernel(dev, ell, K, B, n):
+    """The whole BConv, q̂⁻¹ pre-scale inside the kernel, against the plain
+    version and the numpy oracle: ℓ on both sides of the 15 products a u64
+    holds and of the template limit 16, one batch element of largest
+    residues, and a strided view with two leading dims."""
+    dst = tuple(rns.gen_ntt_primes(K, n))
+    src = tuple(rns.gen_ntt_primes(ell, n, exclude=dst))
+    x = residue_words(src, (B,), n, seed=ell * K + B)
     tx = pl.to_tensor(x, dev)
-    c = const_cache.device_bconv_consts(src, dst, dev)
-    t = bconv_ops.bconv_plain(tx, src, dst)
     config.reset_launches()
     got = bconv_ops.bconv(tx, src, dst)
     assert config.launch_counts() == {"bconv": 1}
-    assert torch.equal(got, t)
+    assert config.kernel_launch_counts() == {"bconvu": 1}
+    assert torch.equal(got, bconv_ops.bconv_plain(tx, src, dst))
     np.testing.assert_array_equal(pl.to_numpy(got), bconv_ref.bconv_ref(x, src, dst))
-    pre = torch.randint(0, 2 ** 29, (2, len(src), N), device=dev, dtype=torch.int32)
-    assert torch.equal(bconv_ops.bconv_matmul_cuda(pre, c.table, c.q_dst),
-                       bconv_ops.bconv_matmul_plain(pre, c.table, c.q_dst))
+    view = tx.expand(2, *tx.shape).transpose(0, 1)           # (B, 2, ℓ, n)
+    assert not view.is_contiguous()
+    assert torch.equal(bconv_ops.bconv(view, src, dst),
+                       got[:, None].expand(B, 2, K, n))
 
 
-@pytest.mark.parametrize("G", [1, 2])
-def test_auto_ks_kernel(dev, G):
-    basis = tuple(rns.gen_ntt_primes(4, N))
-    gs = (pl.galois_elt(1, N), pl.galois_elt(5, N))
-    exts, evk_a, evk_b = (rand(basis, lead, seed=s) for s, lead in
-                          ((0, (17, G)), (1, (2, 17)), (2, (2, 17))))
+@pytest.mark.parametrize("B,K,n", [(1, 70, 1 << 16), (2, 70, 1 << 16),
+                                   (1, 200, 1 << 16), (3, 70, 1 << 11)])
+def test_bconv_kernel_at_planned_chunks(dev, B, K, n):
+    """Shapes at which chunk_plan splits the destination primes over the grid
+    in other shares than the pipeline's (the last split ragged at some)."""
+    dst = tuple(rns.gen_ntt_primes(K, n))
+    src = tuple(rns.gen_ntt_primes(12, n, exclude=dst))
+    tx = pl.to_tensor(residue_words(src, (B,), n, seed=K + B), dev)
+    assert torch.equal(bconv_ops.bconv_cuda(tx, src, dst),
+                       bconv_ops.bconv_plain(tx, src, dst))
+
+
+@pytest.mark.parametrize("G_is_R", [False, True])
+@pytest.mark.parametrize("R", [1, 2, 3])
+def test_auto_ks_kernel(dev, R, G_is_R):
+    """Against the plain version and the numpy oracle, with the shared (G = 1)
+    and per-rotation (G = R) digits, past the 15 digits a u64 holds, at an
+    odd number of limbs."""
+    G = R if G_is_R else 1
+    basis = tuple(rns.gen_ntt_primes(5, N))
+    gs = tuple(pl.galois_elt(r, N) for r in (1, 5, -3)[:R])
+    exts, evk_a, evk_b = (residue_words(basis, lead, N, seed=s) for s, lead in
+                          ((0, (17, G)), (1, (R, 17)), (2, (R, 17))))
     d = lambda x: pl.to_tensor(x, dev)
     config.reset_launches()
     got = auto_ops.auto_ks(d(exts), d(evk_a), d(evk_b), N, gs, basis)
@@ -87,8 +121,8 @@ def test_auto_ks_kernel(dev, G):
     q = const_cache.device_q(basis, dev)
     assert torch.equal(got, auto_ops.auto_ks_plain(d(exts), d(evk_a), d(evk_b),
                                                    perms, q))
-    want = auto_ref.auto_ks_ref(exts, evk_a, evk_b, pl.to_numpy(perms.to(torch.int32))
-                                .view(np.int32), basis)
+    want = auto_ref.auto_ks_ref(exts, evk_a, evk_b, np.stack(
+        [pl.automorphism_perm(N, g) for g in gs]), basis)
     np.testing.assert_array_equal(pl.to_numpy(got), want)
 
 

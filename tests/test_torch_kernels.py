@@ -103,6 +103,35 @@ def test_bconv_plain_exact_past_sixteen_terms():
     np.testing.assert_array_equal(u32(got)[0], bconv_ref.bconv_ref(x[0], src, dst))
 
 
+@pytest.mark.parametrize("B,K,N,resident,want", [
+    (4, 46, 1 << 16, 396, 16),    # ModDown of a hoisted pair, 3 CTAs × 132 SMs
+    (1, 48, 1 << 16, 396, 8),     # ModUp of one digit
+    (1, 48, 1 << 16, 264, 12),    # ... at 2 CTAs an SM (ℓ 15–16)
+    (1, 70, 1 << 16, 396, 12),    # ragged last split
+    (1, 70, 1 << 16, 264, 14),
+    (1, 200, 1 << 16, 396, 16),   # at least ⌈K / PLAN_CHUNK⌉ splits
+    (64, 46, 1 << 16, 396, 16),
+    (1, 1, 1 << 11, 396, 1),
+    (3, 5, 1 << 11, 396, 1),
+    (0, 4, 1 << 10, 396, 1)])
+def test_bconv_chunk_plan(B, K, N, resident, want):
+    """Destination primes per CTA: an even share over as many splits as one
+    wave of resident CTAs holds, never more than the plan's share."""
+    chunk = bconv_ops.chunk_plan(B, K, N, resident)
+    assert 1 <= chunk <= min(K, bconv_ops.PLAN_CHUNK)
+    assert chunk == want
+
+
+def test_bconv_cuda_rejects_bad_operands():
+    """Checked before any kernel is built."""
+    dst = tuple(jrns.gen_ntt_primes(2, N))
+    src = tuple(jrns.gen_ntt_primes(3, N, exclude=dst))
+    with pytest.raises(ValueError):
+        bconv_ops.bconv_cuda(t(rand(src[:2], (2,))), src, dst)       # ℓ ≠ |src|
+    with pytest.raises(TypeError):
+        bconv_ops.bconv_cuda(torch.zeros((2, 3, N), dtype=torch.int64), src, dst)
+
+
 # ------------------------------------------------ AutoU∘KS / multi-perm
 
 def _auto_case(G, R=2, J=3, ell=4, seed=0):
@@ -138,6 +167,22 @@ def test_automorphism_multi_plain_vs_jax_kernel(G):
     got = auto_ops.apply_galois_many(t(x), N, gs)
     np.testing.assert_array_equal(jax_out, want)
     np.testing.assert_array_equal(u32(got), want)
+
+
+def test_auto_ks_cuda_rejects_bad_operands():
+    """Checked before any kernel is built: G ∉ {1, R}, evk shapes, the basis,
+    and a Galois map with no affine form (N not a power of two)."""
+    basis, gs, exts, evk_a, evk_b, _ = _auto_case(1)
+    e, a, b = t(exts), t(evk_a), t(evk_b)
+    with pytest.raises(ValueError):
+        auto_ops.auto_ks_cuda(t(rand(basis, (3, 3))), a, b, gs, basis)
+    with pytest.raises(ValueError):
+        auto_ops.auto_ks_cuda(e, a[:1], b, gs, basis)
+    with pytest.raises(ValueError):
+        auto_ops.auto_ks_cuda(e, a, b, gs, basis[:-1])
+    with pytest.raises(ValueError):
+        auto_ops.auto_ks_cuda(e[..., :N - 1].contiguous(), a[..., :N - 1].contiguous(),
+                              b[..., :N - 1].contiguous(), gs, basis)
 
 
 # --------------------------------------------------------- dispatch rules
