@@ -18,8 +18,10 @@ op under ``torch.profiler`` and prints one JSON line per op:
   plain torch kernels around them (ring ops, stacking, limb reorders), and
   the top torch kernels by name;
 * ``remainder_kernels`` — how many of the op's kernels are torch's integer
-  ``%`` (the plain ``mulmod``s, and before BConvU took in its q̂⁻¹
-  pre-scale, one per BConv launch).
+  ``%`` (the centered lift of rescale; before the EFU took the ring ops on
+  card data, every plain ``mulmod``);
+* ``efu_ms`` / ``efu_kernels`` and ``plain_torch_ms`` — the EFU's device ms
+  and launches, and the device ms of PyTorch's own kernels.
 
 The Chrome traces go to ``--trace-dir`` (default ``build/profile``).
 Fails without CUDA.  Imports nothing of JAX.
@@ -43,6 +45,7 @@ PORT_KERNELS = {"efu_kernel": "efu", "bconv_kernel": "bconvu",
                 "auto_ks_kernel": "auto_ks",
                 "perm_cluster_kernel": "perm_cluster (automorphism_multi / _eager)",
                 "perm_rows_kernel": "automorphism"}
+PLAIN = "torch (plain ops: ring ops on the CPU path, stacking, reorders, lifts)"
 
 
 def kernel_events(trace_path: Path) -> list[dict]:
@@ -61,7 +64,7 @@ def summarize(kernels: list[dict], wall_ms: float, profiled_wall_ms: float) -> d
     by_name: dict[str, float] = defaultdict(float)
     for e in kernels:
         port = next((g for k, g in PORT_KERNELS.items() if k in e["name"]), None)
-        by_group[port or "torch (plain ops: ring ops, stacking, reorders)"] += e["dur"] / 1e3
+        by_group[port or PLAIN] += e["dur"] / 1e3
         if port is None:
             by_name[e["name"][:90]] += e["dur"] / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -69,6 +72,9 @@ def summarize(kernels: list[dict], wall_ms: float, profiled_wall_ms: float) -> d
             "busy_ms": busy_us / 1e3,
             "idle_share": 1 - busy_us / 1e3 / wall_ms, "kernels": len(kernels),
             "remainder_kernels": sum("remainder" in e["name"] for e in kernels),
+            "efu_ms": by_group.get("efu", 0.0),
+            "efu_kernels": sum("efu_kernel" in e["name"] for e in kernels),
+            "plain_torch_ms": by_group.get(PLAIN, 0.0),
             "by_group_ms": dict(by_group), "top_torch_kernels_ms": dict(top)}
 
 

@@ -9,18 +9,21 @@ with ``nvcc`` and runs, each phase printing one JSON line:
 1. device   — the card (fails without CUDA), ``nvidia-smi`` name/power limit;
 2. build    — one ``nvcc`` per kernel source, all at once, and ptxas's
               report (registers, shared memory, spills) of the cluster
-              permutation kernel, the one-pass NTT kernels, BConvU and
-              AutoU∘KS;
+              permutation kernel, the one-pass NTT kernels, BConvU,
+              AutoU∘KS and the EFU (one entry per op);
 3. kernels  — each kernel against its plain torch version on the card at the
               shapes the ``paper_full`` pipeline gives it (N = 2¹⁶, L = 48,
               K = 12, dnum = 4): bit-equal, with kernel / plain / library
-              times and the memory-or-operations bound; the NTT also against
-              the fused plain transform, round trip included, on inputs in
-              [0, 2q), and at every cluster size its split allows (one launch
-              per transform, each limb held in a thread-block cluster's
-              shared memory); BConvU as the whole conversion (pre-scale
-              included) against the plain one, also at several shares of the
-              destination primes per CTA; the NTT, multi-permutation and eager kernels
+              times and the memory-or-operations bound; the EFU at each op
+              and view the pipeline hands it (HMult's mul, mac and add, the
+              rotations' neg and sub on strided halves, mul_scalar, the
+              ModDown and rescale subscale on strided views, read in place);
+              the NTT also against the fused plain transform, round trip
+              included, on inputs in [0, 2q), and at every cluster size its
+              split allows (one launch per transform, each limb held in a
+              thread-block cluster's shared memory); BConvU as the whole
+              conversion (pre-scale included) against the plain one, also at
+              several shares of the destination primes per CTA; the NTT, multi-permutation and eager kernels
               also with their cluster size and shared memory per CTA, and the
               eager kernel on index tables whose reads are local, remote in
               order, or scattered;
@@ -32,9 +35,11 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               then the eager engine's hoisted pair: decode error against
               plaintext math must be < 1e-2; each op runs with the launch
               counts reset just before it and read just after, and every
-              kernel of the path must have launched, the NTT in every op;
-              no plain NTT, plain gather, plain multi-permutation, plain
-              AutoU∘KS or plain BConv table product may run on card data;
+              kernel of the path must have launched, the EFU and the NTT in
+              every op; no plain NTT, plain gather, plain multi-permutation,
+              plain AutoU∘KS, plain BConv table product, plain ring op
+              (modmath's addmod/submod/negmod/mulmod) or plain EFU may run on
+              card data, and the EFU wrapper may copy no operand;
 6. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               (R × cluster size) and the single permutation at N = 2¹⁶,
               ℓ = 48, its cache in a temporary directory;
@@ -147,7 +152,7 @@ def ptxas_report(log: str, kernel: str) -> list[str]:
 # instantiation.
 PTXAS_KERNELS = (("automorphism", "perm_cluster_kernel"), ("ntt", "ntt_fwd_kernel"),
                  ("ntt", "ntt_inv_kernel"), ("bconv", "bconv_kernel"),
-                 ("automorphism", "auto_ks_kernel"))
+                 ("automorphism", "auto_ks_kernel"), ("eltwise", "efu_kernel"))
 
 
 def phase_build():
@@ -169,6 +174,7 @@ def phase_build():
 
 def phase_kernels(params):
     """Each kernel vs its plain version at the paper_full pipeline shapes."""
+    import numpy as np
     import torch
     from repro_torch.core import const_cache, ntt as nttm, poly as pl
     from repro_torch.kernels import autotune
@@ -208,20 +214,48 @@ def phase_kernels(params):
         rows.append(row)
 
     src = "src/repro_torch/kernels/csrc/"
-    # EFU: HMult's stacked mul on (2, ℓ, N) and compound mac on (ℓ, N)
-    q = const_cache.device_q(q48, dev)
-    x2 = [residues(q48, (2,), N, gen) for _ in range(2)]
-    case("efu", "eltwise_mul_2x48", "eltwise", src + "eltwise.cu",
-         "src/repro/kernels/eltwise/kernel.py:56",
-         lambda a, b: elt_ops.eltwise_cuda("mul", q, a, b),
-         lambda a, b: elt_ops.eltwise_plain("mul", q, a, b), x2,
-         nbytes=3 * x2[0].numel() * 4, ops=2 * x2[0].numel())
-    x4 = [residues(q48, (), N, gen) for _ in range(4)]
-    case("efu", "eltwise_mac_48", "eltwise", src + "eltwise.cu",
-         "src/repro/kernels/eltwise/kernel.py:56",
-         lambda *a: elt_ops.eltwise_cuda("mac", q, *a),
-         lambda *a: elt_ops.eltwise_plain("mac", q, *a), x4,
-         nbytes=5 * x4[0].numel() * 4, ops=5 * x4[0].numel())
+    # EFU at the shapes the pipeline gives it, the views read in place:
+    # HMult's stacked mul (2, ℓ, N), compound mac (ℓ, N) and result add
+    # (ℓ, N); the hoisted pair's −ka and φ(b) − kb on the strided halves
+    # k[:, 0], k[:, 1] of the (2, 2, 46, N) key-switch output; a mul_scalar
+    # (2, ℓ, N); the fused pair's ModDown subscale on the Q-part [..., :46, :]
+    # of its (4, 58, N) input, and the rescale's on the head [..., :-1, :] of
+    # (2, 48, N).  Bytes: every operand word read once, the output written
+    # once, q and ⌊2⁶⁴/q⌋ per limb (int64) and, for the scalar ops, w and w′
+    # per limb (u32); operations: one per add/sub/neg, two per product
+    def efu_case(name, op, basis, args, words, ops, scalars=None):
+        consts = len(basis) * (16 if scalars is None else 24)
+        case("efu", name, "eltwise", src + "eltwise.cu",
+             "src/repro/kernels/eltwise/kernel.py:56",
+             lambda *a: elt_ops.eltwise_cuda(op, basis, *a, scalars=scalars),
+             lambda *a: elt_ops.eltwise_plain(op, basis, *a, scalars=scalars),
+             args, nbytes=words * args[0].numel() * 4 + consts,
+             ops=ops * args[0].numel(), info={"op": op})
+
+    elt_ops.reset_copy_counts()
+    q46, q47 = params.q[:L - 2], params.q[:L - 1]
+    efu_case("eltwise_mul_2x48", "mul", q48,
+             [residues(q48, (2,), N, gen) for _ in range(2)], words=3, ops=2)
+    efu_case("eltwise_mac_48", "mac", q48,
+             [residues(q48, (), N, gen) for _ in range(4)], words=5, ops=5)
+    efu_case("eltwise_add_48", "add", q48,
+             [residues(q48, (), N, gen) for _ in range(2)], words=3, ops=1)
+    k = residues(q46, (2, 2), N, gen)
+    efu_case("eltwise_neg_2x46_half", "neg", q46, [k[:, 0]], words=2, ops=1)
+    efu_case("eltwise_sub_2x46_half", "sub", q46,
+             [residues(q46, (2,), N, gen), k[:, 1]], words=3, ops=1)
+    qinv = np.array([pow(params.q[L - 1], q - 2, q) for q in q47], dtype=np.uint32)
+    efu_case("eltwise_scale_2x48", "scale", q48, [residues(q48, (2,), N, gen)],
+             words=2, ops=2, scalars=np.arange(1, L + 1, dtype=np.uint32))
+    ext = residues(q46 + params.p, (4,), N, gen)
+    efu_case("eltwise_subscale_moddown_4x46_of_58", "subscale", q46,
+             [ext[..., :L - 2, :], residues(q46, (4,), N, gen)], words=3, ops=3,
+             scalars=qinv[:L - 2])
+    efu_case("eltwise_subscale_rescale_2x47_of_48", "subscale", q47,
+             [residues(q48, (2,), N, gen)[..., :-1, :], residues(q47, (2,), N, gen)],
+             words=3, ops=3, scalars=qinv)
+    if elt_ops.copy_counts():
+        raise AssertionError(f"the EFU wrapper copied operands: {elt_ops.copy_counts()}")
 
     # BConvU, the whole conversion (pre-scale in the kernel): ModUp of one
     # digit (α = 12 limbs → 36 + 12 = 48) and the stacked ModDown of a
@@ -402,27 +436,30 @@ def _sync_for(device):
 
 @contextlib.contextmanager
 def plain_calls_on_card():
-    """Count the calls of the NTT's, the AutoU kernels' and BConvU's plain
-    versions on CUDA data while the block runs (the main path, on the kernel
-    BConv engine, must make none): the fused plain transform, the plain
-    four-step, the plain single, eager and multi-permutation gathers, the
-    plain AutoU∘KS, the plain BConv table product."""
-    from repro_torch.core import ntt as nttm
+    """Count the calls of the kernels' plain versions on CUDA data while the
+    block runs (the main path, on the kernel BConv engine, must make none):
+    the fused plain transform, the plain four-step, the plain single, eager
+    and multi-permutation gathers, the plain AutoU∘KS, the plain BConv table
+    product, the plain ring ops of modmath (addmod, submod, negmod, mulmod)
+    and the EFU's plain version."""
+    from repro_torch.core import modmath as mm, ntt as nttm
     from repro_torch.kernels.automorphism import ops as auto_ops
     from repro_torch.kernels.bconv import ops as bconv_ops
+    from repro_torch.kernels.eltwise import ops as elt_ops
     calls = collections.Counter()
     saved = [(mod, name, getattr(mod, name)) for mod, name in (
         (nttm, "ntt"), (nttm, "intt"), (nttm, "four_step_ntt"),
         (nttm, "four_step_intt"), (auto_ops, "automorphism_plain"),
         (auto_ops, "automorphism_eager_plain"),
         (auto_ops, "automorphism_multi_plain"), (auto_ops, "auto_ks_plain"),
-        (bconv_ops, "bconv_matmul_plain"))]
+        (bconv_ops, "bconv_matmul_plain"), (mm, "addmod"), (mm, "submod"),
+        (mm, "negmod"), (mm, "mulmod"), (elt_ops, "eltwise_plain"))]
 
     def counted(name, fn):
-        def wrapper(x, *args, **kwargs):
-            if x.is_cuda:
+        def wrapper(*args, **kwargs):
+            if any(getattr(a, "is_cuda", False) for a in args):
                 calls[name] += 1
-            return fn(x, *args, **kwargs)
+            return fn(*args, **kwargs)
         return wrapper
     for mod, name, fn in saved:
         setattr(mod, name, counted(name, fn))
@@ -440,6 +477,7 @@ def _pipeline(params, device, z1, z2, rotations=(1, 4), warm_reps=0):
     runs whose median per-op times are the steady-state latencies."""
     import numpy as np
     from repro_torch.core import encoding as enc, keys as K
+    from repro_torch.kernels.eltwise import ops as elt_ops
 
     sync = _sync_for(device)
 
@@ -451,10 +489,13 @@ def _pipeline(params, device, z1, z2, rotations=(1, 4), warm_reps=0):
                      device=device) for i, z in enumerate((z1, z2))]
     sync()
     times = {"keygen_encrypt_s": time.perf_counter() - t0}
+    elt_ops.reset_copy_counts()
     with plain_calls_on_card() as plain:
         out, cold, launches = _run_ops(cts, keys, params, rotations, sync)
     if plain:
         raise AssertionError(f"plain versions ran on card data: {dict(plain)}")
+    if elt_ops.copy_counts():
+        raise AssertionError(f"the EFU wrapper copied operands: {elt_ops.copy_counts()}")
     times.update({"cold_" + k: v for k, v in cold.items()})
     warm = [_run_ops(cts, keys, params, rotations, sync)[1]
             for _ in range(warm_reps)]
@@ -499,12 +540,13 @@ def phase_cross():
 # then the eager engine's hoisted pair.
 FUSED_PATH_KERNELS = ("efu", "bconvu", "ntt_fwd", "ntt_inv", "auto_ks",
                       "automorphism_multi")
-EAGER_PATH_KERNELS = ("ntt_fwd", "ntt_inv", "automorphism")
+EAGER_PATH_KERNELS = ("efu", "ntt_fwd", "ntt_inv", "automorphism")
 
 
 def phase_pipeline(params):
     import numpy as np
     from repro_torch.core import ckks, const_cache, encoding as enc, keys as K, rns
+    from repro_torch.kernels.eltwise import ops as elt_ops
     t0 = time.perf_counter()
     for q in params.q + params.p:
         rns.prime_tables(q, params.N)
@@ -516,12 +558,15 @@ def phase_pipeline(params):
     # through RnsPoly.automorphism, the single-permutation kernel
     sync = _sync_for(DEVICE)
     eager = lambda: ckks.hrot_hoisted(cts["rescale"], [1, 4], keys)
+    elt_ops.reset_copy_counts()
     with ckks.use_engine("eager"):
         with plain_calls_on_card() as plain:
             rots, cold_ms, launches["eager_hoisted_rotations"] = _timed_op(eager, sync)
         warm = [_timed_op(eager, sync)[1] for _ in range(3)]
     if plain:
         raise AssertionError(f"plain versions ran on card data: {dict(plain)}")
+    if elt_ops.copy_counts():
+        raise AssertionError(f"the EFU wrapper copied operands: {elt_ops.copy_counts()}")
     times.update({"cold_eager_hoisted_rotations_ms": cold_ms,
                   "eager_hoisted_rotations_ms": statistics.median(warm)})
     cts.update({"eager_rot1": rots[0], "eager_rot4": rots[1]})
@@ -539,14 +584,14 @@ def phase_pipeline(params):
     emit({"phase": "pipeline", "params": "paper_full", "N": params.N,
           "L": params.L, "K": params.K, "dnum": params.dnum,
           "levels": {s: cts[s].level for s in cts}, "max_error": errors,
-          "launches": launches, "plain_calls_on_card": 0,
+          "launches": launches, "plain_calls_on_card": 0, "efu_operand_copies": 0,
           "four_step_tables_mb": const_cache.staged_bytes("four_step", DEVICE) / 1e6,
           "host_tables_s": tables_s, "decrypt_decode_s": decode_s, **times})
     if not all(e < 1e-2 for e in errors.values()):
         raise AssertionError(f"decode error ≥ 1e-2: {errors}")
     for op, counts in launches.items():
         path = EAGER_PATH_KERNELS if op.startswith("eager") else ()
-        for kernel in path + ("ntt_fwd", "ntt_inv"):
+        for kernel in path + ("efu", "ntt_fwd", "ntt_inv"):
             if counts.get(kernel, 0) <= 0:
                 raise AssertionError(f"{op}: kernel {kernel} never launched: {counts}")
     total = collections.Counter()
@@ -609,6 +654,11 @@ DESIGN = {
               "words once (16-byte loads), Shoup-scales them in registers and "
               "runs its chunk of destination primes against a table staged in "
               "shared memory, one Barrett per output",
+    "efu": "grid (N/1024, outer·ℓ): the limb and its constants once per CTA "
+           "in registers, four words a thread by 16-byte loads and stores, "
+           "strided views read in place, products by the division-free "
+           "Barrett and scalar products by Shoup; carries the ring ops (add, "
+           "sub, neg, mul, mul_scalar and the fused subtract-and-scale)",
     "auto_ks": "limb-major grid, every rotation of a limb in one thread (two "
                "at a time inside the loop over the digits), so the hoisted "
                "digits cross device memory once; the Galois map computed in "
@@ -637,7 +687,7 @@ def kernel_table(rows, launches):
                           "name", "shape", "equal", "max_abs_err", "ms",
                           "plain_ms", "bound_ms", "bound_by", "library_ms",
                           "R", "cluster", "smem_bytes_per_cta", "ms_by_cluster",
-                          "chunk", "resident_ctas")
+                          "chunk", "resident_ctas", "op")
                           if k in c} for c in cases]})
     return table
 

@@ -149,15 +149,16 @@ def mod_down(x: pl.RnsPoly, q_basis: tuple[int, ...],
     """⌊x / P⌉ : basis Q∪P (NTT domain) → basis Q (NTT domain).
 
     The P-part (iNTT → BConv into Q → NTT) is subtracted, then the result is
-    multiplied by P⁻¹ mod q_i.  Leading dims of ``x`` ride through every step
-    — including the BConv kernel's batch — in one dispatch.
+    multiplied by P⁻¹ mod q_i (one EFU ``subscale`` launch on card data, which
+    reads the Q-part of ``x`` in place).  Leading dims of ``x`` ride through
+    every step — including the BConv kernel's batch — in one dispatch.
     """
     ellq = len(q_basis)
     assert x.basis == tuple(q_basis) + tuple(p) and x.domain == pl.NTT
     xq = pl.RnsPoly(x.data[..., :ellq, :], tuple(q_basis), pl.NTT)
     xp = pl.RnsPoly(x.data[..., ellq:, :], tuple(p), pl.NTT)
     xp_in_q = bconv(xp.to_coeff(), tuple(q_basis)).to_ntt()
-    return (xq - xp_in_q).mul_scalar(_moddown_pinv(tuple(q_basis), tuple(p)))
+    return xq.sub_scaled(xp_in_q, _moddown_pinv(tuple(q_basis), tuple(p)))
 
 
 @functools.lru_cache(maxsize=None)

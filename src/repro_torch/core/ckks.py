@@ -432,14 +432,14 @@ def _rescale_once(a: pl.RnsPoly, b: pl.RnsPoly, scale: float):
     ql = basis[-1]
     new_basis = basis[:-1]
     # both ciphertext components ride one leading axis: the top-limb iNTT,
-    # the vectorized centered lift, the re-NTT and the q_ℓ⁻¹ scale each
-    # dispatch once for the pair.
+    # the vectorized centered lift, the re-NTT and the subtract-and-scale by
+    # q_ℓ⁻¹ each dispatch once for the pair.
     xn = torch.stack([a.to_ntt().data, b.to_ntt().data])
     last = pl.RnsPoly(xn[..., -1:, :], (ql,), pl.NTT).to_coeff()
     lifted = bc.centered_lift_single(last.data[..., 0, :], ql, new_basis)
     lifted_ntt = pl.RnsPoly(lifted, new_basis, pl.COEFF).to_ntt()
     head = pl.RnsPoly(xn[..., :-1, :], new_basis, pl.NTT)
-    out = (head - lifted_ntt).mul_scalar(_rescale_qinv(basis))
+    out = head.sub_scaled(lifted_ntt, _rescale_qinv(basis))
     return (pl.RnsPoly(out.data[0], new_basis, pl.NTT),
             pl.RnsPoly(out.data[1], new_basis, pl.NTT), scale / ql)
 

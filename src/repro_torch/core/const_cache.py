@@ -15,10 +15,11 @@ purely the numpy → device staging layer.  Residue tables are staged as int64
 int64 (what ``index_select`` takes).  The exceptions are the kernels' own
 operands, u32 bit patterns in int32 tensors: the four-step NTT tables
 (:func:`device_four_step_consts`, half the bytes the kernel has to read), the
-BConvU kernel's Shoup companions and table (:class:`BConvConsts`) and the
+BConvU kernel's Shoup companions and table (:class:`BConvConsts`), the
 affine Galois maps of the fused AutoU∘KS kernel
-(:func:`device_galois_affine`); the kernels' Barrett constants ⌊2⁶⁴/q⌋ are
-int64 (:func:`device_barrett`).
+(:func:`device_galois_affine`) and the EFU's per-limb scalars with their
+Shoup companions (:func:`device_efu_scalars`); the kernels' Barrett
+constants ⌊2⁶⁴/q⌋ are int64 (:func:`device_barrett`).
 """
 from __future__ import annotations
 
@@ -182,6 +183,25 @@ def device_barrett(basis: tuple[int, ...], device) -> torch.Tensor:
     """⌊2⁶⁴/q⌋ per prime of a basis as an (ℓ,) int64, staged once."""
     return device_table(("barrett", tuple(basis)),
                         lambda: barrett_consts(tuple(basis)), device)
+
+
+def device_efu_scalars(basis: tuple[int, ...], scalars: np.ndarray,
+                       device) -> torch.Tensor:
+    """The EFU's scale/subscale operand: (2, ℓ) u32 bits in int32, row 0 the
+    scalars reduced mod their limb's prime (w_i), row 1 their Shoup
+    companions ⌊w_i·2³²/q_i⌋; staged once per (basis, scalars, device).
+    ``scalars`` is an (ℓ,) u32 array."""
+    basis = tuple(basis)
+    sv = np.asarray(scalars, dtype=np.uint32).reshape(-1)
+    if sv.size != len(basis):
+        raise ValueError(f"{sv.size} scalars for {len(basis)} primes")
+    dev = device_of(device)
+
+    def stage():
+        w = [int(s) % q for s, q in zip(sv, basis)]
+        return _stage(np.array([w, [rns.shoup(wi, q) for wi, q in zip(w, basis)]],
+                               dtype=np.int64), dev, u32_bits=True)
+    return _cache.get((("efu_scalars", basis, sv.tobytes()), str(dev)), stage)
 
 
 def device_galois_perm(N: int, g: int, device) -> torch.Tensor:

@@ -6,11 +6,13 @@ either ``"coeff"`` (power basis) or ``"ntt"`` (evaluations at ψ^{2k+1},
 natural order).  Ciphertexts stack two polys on a leading axis.
 
 Residues are int32 torch tensors (every prime is < 2³⁰, so the u32 bits of
-the reference are the same non-negative numbers); arithmetic runs in int64
-through :mod:`repro_torch.core.modmath` and per-limb constants come
-device-resident from :mod:`repro_torch.core.const_cache`.  The samplers are
-host-side numpy on the reference's ``default_rng`` call sequence, so the same
-seed gives byte-identical key material.
+the reference are the same non-negative numbers).  On CUDA data the ring ops
+(add, sub, neg, mul, mul_scalar and the fused :meth:`RnsPoly.sub_scaled`) run
+the EFU kernel (:mod:`repro_torch.kernels.eltwise`), int32 in and out; on CPU
+data they run in int64 through :mod:`repro_torch.core.modmath`.  Per-limb
+constants come device-resident from :mod:`repro_torch.core.const_cache`.
+The samplers are host-side numpy on the reference's ``default_rng`` call
+sequence, so the same seed gives byte-identical key material.
 
 On CUDA data the NTT, the iNTT and the automorphism run the hand-written
 kernels (:mod:`repro_torch.kernels.ntt`, the single-permutation kernel of
@@ -33,6 +35,7 @@ from . import ntt as nttm
 from . import trace
 from repro_torch.kernels import native
 from repro_torch.kernels.automorphism import ops as auto_ops
+from repro_torch.kernels.eltwise import ops as elt_ops
 from repro_torch.kernels.ntt import ops as ntt_ops
 
 COEFF = "coeff"
@@ -110,17 +113,30 @@ class RnsPoly:
     def _new(self, data: torch.Tensor, domain: str | None = None) -> "RnsPoly":
         return RnsPoly(data.to(torch.int32), self.basis, domain or self.domain)
 
+    def _efu(self, op: str, *others: "RnsPoly", scalars=None,
+             domain: str | None = None) -> "RnsPoly":
+        """``op`` on the EFU kernel (card data), int32 in and out."""
+        data = elt_ops.eltwise_cuda(op, self.basis, self.data,
+                                    *(o.data for o in others), scalars=scalars)
+        return RnsPoly(data, self.basis, domain or self.domain)
+
     def __add__(self, o: "RnsPoly") -> "RnsPoly":
         self._check_aligned(o, "add")
         assert self.basis == o.basis and self.domain == o.domain
+        if native.on_cuda(self.data, o.data):
+            return self._efu("add", o)
         return self._new(mm.addmod(self.data, o.data, self._q()))
 
     def __sub__(self, o: "RnsPoly") -> "RnsPoly":
         self._check_aligned(o, "sub")
         assert self.basis == o.basis and self.domain == o.domain
+        if native.on_cuda(self.data, o.data):
+            return self._efu("sub", o)
         return self._new(mm.submod(self.data, o.data, self._q()))
 
     def __neg__(self) -> "RnsPoly":
+        if native.on_cuda(self.data):
+            return self._efu("neg")
         return self._new(mm.negmod(self.data, self._q()))
 
     def __mul__(self, o: "RnsPoly") -> "RnsPoly":
@@ -128,18 +144,34 @@ class RnsPoly:
         assert self.basis == o.basis
         assert self.domain == NTT and o.domain == NTT, "mul requires NTT domain"
         trace.record("elt_mul", int(np.prod(self.data.shape[:-1])), self.N)
+        if native.on_cuda(self.data, o.data):
+            return self._efu("mul", o, domain=NTT)
         return self._new(mm.mulmod(self.data, o.data, self._q()), NTT)
 
     def mul_scalar(self, scalars: np.ndarray) -> "RnsPoly":
         """Multiply limb i by the constant ``scalars[i]``.
 
-        The (ℓ, 1) scalar column is staged once per (basis, scalars, device)
-        — rescale/ModDown reuse the same vector every call.
+        The scalar column is staged once per (basis, scalars, device) —
+        rescale/ModDown reuse the same vector every call: on card data with
+        its Shoup companions for the EFU's ``scale``, on the CPU as an (ℓ, 1)
+        int64 column.
         """
+        if native.on_cuda(self.data):
+            return self._efu("scale", scalars=scalars)
         sv = np.asarray(scalars, dtype=np.uint32).reshape(-1)
         w = const_cache.device_table(("mul_scalar", self.basis, sv.tobytes()),
                                      lambda: sv.reshape(-1, 1), self.device)
         return self._new(mm.mulmod(self.data, w, self._q()))
+
+    def sub_scaled(self, o: "RnsPoly", scalars: np.ndarray) -> "RnsPoly":
+        """(self − o) · scalars[i] on limb i: the tail of ModDown and of
+        rescale.  One EFU ``subscale`` launch on card data;
+        ``(self − o).mul_scalar(scalars)`` on the CPU."""
+        self._check_aligned(o, "sub_scaled")
+        assert self.basis == o.basis and self.domain == o.domain
+        if native.on_cuda(self.data, o.data):
+            return self._efu("subscale", o, scalars=scalars)
+        return (self - o).mul_scalar(scalars)
 
     # -- structure ------------------------------------------------------------
     def limbs(self, idx: slice) -> "RnsPoly":

@@ -85,9 +85,10 @@ def automorphism_cuda(x: torch.Tensor, perm: torch.Tensor,
     B = x.numel() // N if N else 0
     rows = config.effective_block(max(B, 1), rows_per_cta)
     out = torch.empty_like(x)
-    err = native.lib("automorphism").automorphism_rows_launch(
-        x.data_ptr(), perm.data_ptr(), out.data_ptr(), B, N, rows,
-        native.stream_of(x))
+    with native.on_device(x):
+        err = native.lib("automorphism").automorphism_rows_launch(
+            x.data_ptr(), perm.data_ptr(), out.data_ptr(), B, N, rows,
+            native.stream_of(x))
     native.check("automorphism", err, "automorphism")
     config.count_launch("automorphism", "automorphism")
     return out
@@ -115,9 +116,10 @@ def automorphism_eager_cuda(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor
     _require_words(x, perm)
     P, ell, N = x.shape
     out = torch.empty_like(x)
-    err = native.lib("automorphism").automorphism_eager_launch(
-        x.data_ptr(), perm.data_ptr(), out.data_ptr(), P * ell, N,
-        *cluster_plan(N), native.stream_of(x))
+    with native.on_device(x):
+        err = native.lib("automorphism").automorphism_eager_launch(
+            x.data_ptr(), perm.data_ptr(), out.data_ptr(), P * ell, N,
+            *cluster_plan(N), native.stream_of(x))
     native.check("automorphism", err, "automorphism_eager")
     config.count_launch("automorphism", "automorphism_eager")
     return out
@@ -167,9 +169,10 @@ def automorphism_multi_cuda(x: torch.Tensor, perms: torch.Tensor) -> torch.Tenso
     R = perms.shape[0]
     _require_words(x, perms)
     out = torch.empty((R, L, N), dtype=torch.int32, device=x.device)
-    err = native.lib("automorphism").automorphism_multi_launch(
-        x.data_ptr(), perms.data_ptr(), out.data_ptr(), G, R, L, N,
-        *cluster_plan(N), native.stream_of(x))
+    with native.on_device(x):
+        err = native.lib("automorphism").automorphism_multi_launch(
+            x.data_ptr(), perms.data_ptr(), out.data_ptr(), G, R, L, N,
+            *cluster_plan(N), native.stream_of(x))
     native.check("automorphism", err, "automorphism_multi")
     config.count_launch("automorphism", "automorphism_multi")
     return out
@@ -227,10 +230,11 @@ def auto_ks_cuda(exts: torch.Tensor, evk_a: torch.Tensor, evk_b: torch.Tensor,
     q = const_cache.device_q(tuple(basis), dev)
     mu = const_cache.device_barrett(tuple(basis), dev)
     out = torch.empty((R, 2, L, N), dtype=torch.int32, device=dev)
-    err = native.lib("automorphism").auto_ks_launch(
-        exts.data_ptr(), evk_a.data_ptr(), evk_b.data_ptr(), galois.data_ptr(),
-        q.data_ptr(), mu.data_ptr(), out.data_ptr(), J, G, R, L, N,
-        native.stream_of(exts))
+    with native.on_device(exts):
+        err = native.lib("automorphism").auto_ks_launch(
+            exts.data_ptr(), evk_a.data_ptr(), evk_b.data_ptr(), galois.data_ptr(),
+            q.data_ptr(), mu.data_ptr(), out.data_ptr(), J, G, R, L, N,
+            native.stream_of(exts))
     native.check("automorphism", err, "auto_ks")
     config.count_launch("auto_ks", "auto_ks")
     return out

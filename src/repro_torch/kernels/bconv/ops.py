@@ -104,11 +104,12 @@ def bconv_cuda(x: torch.Tensor, src: tuple[int, ...], dst: tuple[int, ...]) -> t
     chunk = chunk_plan(B, K, N, resident_ctas(ell, x.device))
     c = const_cache.device_bconv_consts(src, dst, x.device)
     out = torch.empty((B, K, N), dtype=torch.int32, device=x.device)
-    err = native.lib("bconv").bconv_launch(
-        flat.data_ptr(), c.q_src.data_ptr(), c.qhat_inv.data_ptr(),
-        c.qhat_inv_shoup.data_ptr(), c.table_u32.data_ptr(), c.q_dst.data_ptr(),
-        c.barrett.data_ptr(), out.data_ptr(), B, ell, K, N, chunk,
-        native.stream_of(x))
+    with native.on_device(x):
+        err = native.lib("bconv").bconv_launch(
+            flat.data_ptr(), c.q_src.data_ptr(), c.qhat_inv.data_ptr(),
+            c.qhat_inv_shoup.data_ptr(), c.table_u32.data_ptr(), c.q_dst.data_ptr(),
+            c.barrett.data_ptr(), out.data_ptr(), B, ell, K, N, chunk,
+            native.stream_of(x))
     native.check("bconv", err, "bconv")
     config.count_launch("bconv", "bconvu")
     return out.reshape(*lead, K, N)

@@ -30,10 +30,6 @@ constexpr int kThreads = 256;
 constexpr int kReduceEvery = 15;
 constexpr int kMaxSmemPerCta = 227 * 1024;     // Hopper: 232,448 bytes
 
-inline unsigned grid_for(long long total) {
-  return static_cast<unsigned>((total + kThreads - 1) / kThreads);
-}
-
 // A u64 sum of 32×32-bit products, kept as its two words.  acc.mac(a, b) is
 // one IMAD.WIDE.U32, written as PTX's carry pair (mad.lo.cc / madc.hi): the
 // C++ form `acc += uint64_t(a) * b` compiles to the same instruction plus an
@@ -167,35 +163,46 @@ __device__ __forceinline__ uint32_t cluster_word(cg::cluster_group& cluster,
   return *cluster.map_shared_rank(row.smem + (w - base), owner);
 }
 
-// What a kernel's cluster launches have set up so far: its dynamic
-// shared-memory limit, and per cluster size the largest shared memory per CTA
-// at which a cluster was found to fit on the card.
+// What a kernel's cluster launches have set up so far, per device (both the
+// function attribute and the occupancy answer hold for the device that was
+// current when they were made): its dynamic shared-memory limit, and per
+// cluster size the largest shared memory per CTA at which a cluster was found
+// to fit on the card.
+constexpr int kMaxDevices = 64;
+
 struct ClusterLaunchState {
-  int smem_allowed = 48 * 1024;
-  int resident_smem[9] = {};
+  struct OnDevice {
+    int smem_allowed = 48 * 1024;
+    int resident_smem[9] = {};
+  };
+  OnDevice device[kMaxDevices];
 };
 
 // Ready `kernel` for the launch `cfg` (clusters of C CTAs, `smem` dynamic
-// bytes each): raise its shared-memory limit where needed and check, once per
-// (C, smem), that at least one such cluster can be resident.  The state
-// changes only outside stream capture in practice: the first launch of a plan
-// is an ordinary one.  Returns the CUDA error, cudaErrorInvalidConfiguration
-// when no cluster fits.
+// bytes each) on the current device: raise its shared-memory limit there
+// where needed and check, once per (device, C, smem), that at least one such
+// cluster can be resident.  The state changes only outside stream capture in
+// practice: the first launch of a plan is an ordinary one.  Returns the CUDA
+// error, cudaErrorInvalidConfiguration when no cluster fits.
 template <typename Kernel>
 cudaError_t prepare_cluster_launch(Kernel kernel, const cudaLaunchConfig_t& cfg,
                                    ClusterLaunchState& state, int C, int smem) {
-  if (smem > state.smem_allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  ClusterLaunchState::OnDevice& on = state.device[dev];
+  if (smem > on.smem_allowed) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    state.smem_allowed = smem;
+    on.smem_allowed = smem;
   }
-  if (smem > state.resident_smem[C]) {
+  if (smem > on.resident_smem[C]) {
     int clusters = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (err != cudaSuccess) return err;
     if (clusters < 1) return cudaErrorInvalidConfiguration;
-    state.resident_smem[C] = smem;
+    on.resident_smem[C] = smem;
   }
   return cudaSuccess;
 }

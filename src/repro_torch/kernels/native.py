@@ -35,7 +35,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of each library: name → argtypes (all return int).
 SIGNATURES = {
     "eltwise": {
-        "efu_launch": [_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+        "efu_launch": [_I] + [_P] * 4 + [_LL] * 4 + [_P, _LL] + [_P] * 3
+                      + [_I] * 3 + [_P],
     },
     "bconv": {
         "bconv_launch": [_P] * 8 + [_I] * 5 + [_P],
@@ -142,16 +143,25 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(t: torch.Tensor) -> torch.cuda.device:
+    """Context that makes ``t``'s card the current CUDA device.  Every
+    launcher runs inside it: a kernel launch, a function attribute and an
+    occupancy query act on the current device, whatever card holds the
+    operands."""
+    return torch.cuda.device(t.device)
 
 
 def require(tensors: dict[str, torch.Tensor], dtype: torch.dtype,
-            device: torch.device) -> None:
+            device: torch.device, contiguous: bool = True) -> None:
     """Validate operands before their pointers reach a kernel."""
     for label, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{label}: on {t.device}, expected {device}")
         if t.dtype != dtype:
             raise TypeError(f"{label}: dtype {t.dtype}, expected {dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{label}: must be contiguous")

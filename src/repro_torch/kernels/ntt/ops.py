@@ -148,9 +148,10 @@ def ntt_cuda(x: torch.Tensor, fc: nttm.FourStepConsts, forward: bool,
     out = torch.empty_like(x)
     lib = native.lib("ntt")
     launch = lib.ntt_fwd_launch if forward else lib.ntt_inv_launch
-    err = launch(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
-                 x.numel() // N, ell, R, C, cluster,
-                 int(stage_pairs(N, R, cluster)), native.stream_of(x))
+    with native.on_device(x):
+        err = launch(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
+                     x.numel() // N, ell, R, C, cluster,
+                     int(stage_pairs(N, R, cluster)), native.stream_of(x))
     name = "ntt_fwd" if forward else "ntt_inv"
     native.check("ntt", err, name)
     config.count_launch("ntt", name)

@@ -162,6 +162,12 @@ _POLY_OPS = {
     "mul": lambda a, b: a * b,
     "mul_scalar": lambda a, b: a.mul_scalar(
         np.array([7 + i for i in range(a.ell)], dtype=np.uint32)),
+    # the port's fused tail of ModDown and rescale against the reference's
+    # (a − b).mul_scalar(…)
+    "sub_scaled": lambda a, b: (
+        a.sub_scaled(b, np.arange(3, 3 + a.ell, dtype=np.uint32))
+        if isinstance(a, pl.RnsPoly)
+        else (a - b).mul_scalar(np.arange(3, 3 + a.ell, dtype=np.uint32))),
     "automorphism": lambda a, b: a.automorphism_by_gelt(25),
     "limbs": lambda a, b: a.limbs(slice(1, 3)),
 }

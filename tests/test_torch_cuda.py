@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import ckks, const_cache, encoding as enc, keys as K
-from repro_torch.core import ntt as nttm, params as prm, poly as pl, rns
+from repro_torch.core import modmath as mm, ntt as nttm, params as prm, poly as pl, rns
 from repro_torch.kernels import config
 from repro_torch.kernels.automorphism import ops as auto_ops, ref as auto_ref
 from repro_torch.kernels.bconv import ops as bconv_ops, ref as bconv_ref
@@ -42,19 +42,6 @@ def rand(basis, lead=(), seed=0):
     return out.astype(np.uint32).reshape(*lead, len(basis), N)
 
 
-@pytest.mark.parametrize("op", elt_ops.OPS)
-def test_eltwise_kernel(dev, op):
-    basis = tuple(rns.gen_ntt_primes(4, N))
-    xs = [pl.to_tensor(rand(basis, (2,), seed=i), dev)
-          for i in range(elt_ops.ARITY[op])]
-    q = const_cache.device_q(basis, dev)
-    config.reset_launches()
-    got = elt_ops.eltwise(op, basis, *(x.transpose(0, 1).contiguous()
-                                       .transpose(0, 1) for x in xs))
-    assert config.launch_counts() == {"eltwise": 1}
-    assert torch.equal(got, elt_ops.eltwise_plain(op, q, *xs))
-
-
 def residue_words(basis, lead, n, seed):
     """u32 residues (*lead, ℓ, n), uniform per limb; the first row of the
     first batch element holds the largest residues q − 1."""
@@ -63,6 +50,98 @@ def residue_words(basis, lead, n, seed):
                  axis=len(lead))
     x.reshape(-1, len(basis), n)[0] = np.array(basis)[:, None] - 1
     return x.astype(np.uint32)
+
+
+def efu_scalars(basis):
+    """Per-limb scalars for scale/subscale: 1, q − 1, and random residues."""
+    rng = np.random.default_rng(len(basis))
+    sv = np.array([rng.integers(0, q) for q in basis], dtype=np.uint32)
+    sv[0], sv[-1] = 1, basis[-1] - 1
+    return sv
+
+
+@pytest.mark.parametrize("op", elt_ops.OPS)
+def test_eltwise_kernel(dev, op):
+    """Every EFU op on contiguous operands against its plain version, the
+    first row of each limb holding the largest residues q − 1."""
+    basis = tuple(rns.gen_ntt_primes(4, N))
+    xs = [pl.to_tensor(residue_words(basis, (2,), N, seed=i), dev)
+          for i in range(elt_ops.ARITY[op])]
+    sv = efu_scalars(basis) if op in elt_ops.SCALED else None
+    config.reset_launches()
+    got = elt_ops.eltwise(op, basis, *xs, scalars=sv)
+    assert config.launch_counts() == {"eltwise": 1}
+    assert torch.equal(got, elt_ops.eltwise_plain(op, basis, *xs, scalars=sv))
+
+
+VIEW_KINDS = ("moddown", "rescale", "halves", "expanded", "copied")
+
+
+def efu_views(kind, basis, n, arity, dev):
+    """EFU operands as the pipeline hands them over: the Q-part of a ModDown
+    input (4, ℓ + 12, n)[..., :ℓ, :], the head of a rescale input
+    (2, ℓ + 1, n)[..., :-1, :], the half k[:, 1] of a (2, 2, ℓ, n) key-switch
+    output; an (ℓ, n) operand expanded to (3, ℓ, n), outer stride 0; and a
+    (3, ℓ, n) view with rows 3n words apart, which the wrapper copies.
+    The others are contiguous with the same leading dims."""
+    ell = len(basis)
+    words = lambda lead, seed, b=basis: pl.to_tensor(residue_words(b, lead, n, seed), dev)
+    if kind == "moddown":
+        first = words((4,), 0, basis + tuple(rns.gen_ntt_primes(12, n, exclude=basis)))
+        first = first[..., :ell, :]
+    elif kind == "rescale":
+        first = words((2,), 0, basis + tuple(rns.gen_ntt_primes(1, n, exclude=basis)))
+        first = first[..., :-1, :]
+    elif kind == "halves":
+        first = words((2, 2), 0)[:, 1]
+    elif kind == "expanded":
+        first = words((), 0).expand(3, ell, n)
+    else:
+        first = words((3,), 0).transpose(0, 1).contiguous().transpose(0, 1)
+    return [first] + [words(tuple(first.shape[:-2]), i) for i in range(1, arity)]
+
+
+@pytest.mark.parametrize("kind", VIEW_KINDS)
+@pytest.mark.parametrize("op", elt_ops.OPS)
+def test_eltwise_kernel_on_views(dev, op, kind):
+    """Every EFU op on the strided views the pipeline makes, read in place
+    (no copy), and on a view that the wrapper must copy (one copy)."""
+    basis = tuple(rns.gen_ntt_primes(4, N))
+    xs = efu_views(kind, basis, N, elt_ops.ARITY[op], dev)
+    sv = efu_scalars(basis) if op in elt_ops.SCALED else None
+    config.reset_launches()
+    elt_ops.reset_copy_counts()
+    got = elt_ops.eltwise(op, basis, *xs, scalars=sv)
+    assert config.launch_counts() == {"eltwise": 1}
+    assert elt_ops.copy_counts() == ({op: 1} if kind == "copied" else {})
+    assert torch.equal(got, elt_ops.eltwise_plain(
+        op, basis, *(x.contiguous() for x in xs), scalars=sv))
+
+
+RING_OPS = {
+    "add": lambda a, b, s: a + b,
+    "sub": lambda a, b, s: a - b,
+    "neg": lambda a, b, s: -a,
+    "mul": lambda a, b, s: a * b,
+    "mul_scalar": lambda a, b, s: a.mul_scalar(s),
+    "sub_scaled": lambda a, b, s: a.sub_scaled(b, s),
+}
+
+
+@pytest.mark.parametrize("op", sorted(RING_OPS))
+def test_rnspoly_ring_op_on_card(dev, op):
+    """Each RnsPoly ring op on card data is one EFU launch, int32 out, equal
+    to the same op on the CPU (the plain modmath path)."""
+    basis = tuple(rns.gen_ntt_primes(4, N))
+    x, y = (residue_words(basis, (2,), N, seed=s) for s in (1, 2))
+    sv = efu_scalars(basis)
+    polys = lambda d: [pl.RnsPoly(pl.to_tensor(v, d), basis, pl.NTT) for v in (x, y)]
+    config.reset_launches()
+    got = RING_OPS[op](*polys(dev), sv)
+    assert config.kernel_launch_counts() == {"efu": 1}
+    want = RING_OPS[op](*polys("cpu"), sv)
+    assert (got.basis, got.domain, got.data.dtype) == (basis, pl.NTT, torch.int32)
+    assert torch.equal(got.data.cpu(), want.data)
 
 
 @pytest.mark.parametrize("n", [1 << 11, 1 << 16])
@@ -335,18 +414,38 @@ def test_single_permutation_kernels(dev, rows, n, kind, L):
 
 def test_kernel_rejects_bad_operands(dev):
     basis = tuple(rns.gen_ntt_primes(2, N))
-    q = const_cache.device_q(basis, dev)
     x = torch.zeros((2, N), dtype=torch.int64, device=dev)
     with pytest.raises(TypeError):
-        elt_ops.eltwise_cuda("add", q, x, x)
+        elt_ops.eltwise_cuda("add", basis, x, x)
+    y = torch.zeros(2 * N + 1, dtype=torch.int32, device=dev)[1:].view(2, N)
+    with pytest.raises(ValueError):
+        elt_ops.eltwise_cuda("add", basis, y, y)                  # not 16-byte aligned
+
+
+def guard_plain_ring_ops(monkeypatch):
+    """Make the plain ring ops (modmath's addmod, submod, negmod, mulmod and
+    the EFU's plain version) raise on card data; CPU data runs them as
+    before."""
+    for mod, name in ((mm, "addmod"), (mm, "submod"), (mm, "negmod"),
+                      (mm, "mulmod"), (elt_ops, "eltwise_plain")):
+        def guarded(*args, _fn=getattr(mod, name), _name=name, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError(f"plain {_name} ran on card data")
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, guarded)
 
 
 @pytest.mark.parametrize("engine", ["fused", "eager"])
-def test_pipeline_same_bytes_on_card_and_cpu(dev, engine):
+def test_pipeline_same_bytes_on_card_and_cpu(dev, engine, monkeypatch):
+    """keygen → encrypt → hmult → rescale → hoisted rotations give the same
+    bytes on the card as on the CPU, with no plain ring op on card data and
+    no operand copied by the EFU wrapper."""
+    guard_plain_ring_ops(monkeypatch)
     p = prm.test_small()
     z = np.linspace(-1, 1, 8) + 0.5j
     out = {}
     for device in ("cpu", dev):
+        elt_ops.reset_copy_counts()
         keys = K.keygen(p, rotations=(1, 4), seed=0, device=device)
         scale = float(p.q[-1])
         ct = K.encrypt(enc.encode(z, scale, p.q, p.N), scale, keys.sk, p.q, p.N,
@@ -354,6 +453,47 @@ def test_pipeline_same_bytes_on_card_and_cpu(dev, engine):
         with ckks.use_engine(engine):
             r = ckks.rescale(ckks.hmult(ct, ct, keys), p)
             out[str(device)] = [r] + ckks.hrot_hoisted(r, [1, 4], keys)
+        assert elt_ops.copy_counts() == {}
     for a, b in zip(out["cpu"], out[str(dev)], strict=True):
         assert torch.equal(a.a.data, b.a.data.cpu())
         assert torch.equal(a.b.data, b.b.data.cpu())
+
+
+def test_launches_follow_the_operands_card():
+    """Every kernel launched on cuda:1 while cuda:0 is current equals its
+    plain version there, the cluster kernels included (their shared-memory
+    limit is raised per device), and cuda:0 stays current."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    n = 1 << 16
+    d1 = torch.device("cuda", 1)
+    basis = tuple(rns.gen_ntt_primes(3, n))
+    dst = tuple(rns.gen_ntt_primes(2, n, exclude=basis))
+    gs = (pl.galois_elt(1, n), pl.galois_elt(4, n))
+    with torch.cuda.device(0):
+        x = pl.to_tensor(residue_words(basis, (2,), n, seed=1), d1)
+        y = pl.to_tensor(residue_words(basis, (2,), n, seed=2), d1)
+        ev = [pl.to_tensor(residue_words(basis, (2, 2), n, seed=s), d1) for s in (3, 4)]
+        perm = const_cache.device_galois_perm(n, gs[0], d1)
+        perms = const_cache.device_galois_perm_stack(n, gs, d1)
+        R = nttm.balanced_submodules(n)
+        fc = const_cache.device_four_step_consts(basis, n, R, d1)
+        cluster = ntt_ops.cluster_plan(n, R)
+        pairs = [
+            (elt_ops.eltwise_cuda("mul", basis, x, y),
+             elt_ops.eltwise_plain("mul", basis, x, y)),
+            (ntt_ops.ntt_cuda(x, fc, True, cluster), ntt_ops.ntt_plain(x, fc, True)),
+            (ntt_ops.ntt_cuda(x, fc, False, cluster), ntt_ops.ntt_plain(x, fc, False)),
+            (auto_ops.automorphism_cuda(x, perm, 4), auto_ops.automorphism_plain(x, perm)),
+            (auto_ops.automorphism_eager_cuda(x, perm),
+             auto_ops.automorphism_eager_plain(x, perm)),
+            (auto_ops.automorphism_multi_cuda(x[:1], perms),
+             auto_ops.automorphism_multi_plain(x[:1], perms)),
+            (bconv_ops.bconv_cuda(x, basis, dst), bconv_ops.bconv_plain(x, basis, dst)),
+            (auto_ops.auto_ks_cuda(x[:, None], ev[0], ev[1], gs, basis),
+             auto_ops.auto_ks_plain(x[:, None], ev[0], ev[1], perms,
+                                    const_cache.device_q(basis, d1)))]
+        torch.cuda.synchronize(d1)
+        assert torch.cuda.current_device() == 0
+    for got, want in pairs:
+        assert got.device == d1 and torch.equal(got, want)

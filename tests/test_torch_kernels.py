@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro.core import const_cache as jcc  # noqa: E402
+from repro.core import modmath as jmm  # noqa: E402
 from repro.core import rns as jrns  # noqa: E402
 from repro.kernels.automorphism import ops as jauto  # noqa: E402
 from repro.kernels.bconv import kernel as jbconv_kernel  # noqa: E402
@@ -50,7 +51,7 @@ def u32(x):
 
 # ------------------------------------------------------------------- EFU
 
-@pytest.mark.parametrize("op", elt_ops.OPS)
+@pytest.mark.parametrize("op", elt_ops.REFERENCE_OPS)
 def test_eltwise_plain_vs_jax_kernel(op):
     basis = tuple(jrns.gen_ntt_primes(3, N))
     xs = [rand(basis, (2,), seed=i) for i in range(elt_ops.ARITY[op])]
@@ -60,6 +61,72 @@ def test_eltwise_plain_vs_jax_kernel(op):
     got = elt_ops.eltwise(op, basis, *map(t, xs))
     np.testing.assert_array_equal(jax_out, want)
     np.testing.assert_array_equal(u32(got), want)
+
+
+@pytest.mark.parametrize("op", ["neg", "scale", "subscale"])
+def test_eltwise_ring_op_plain_vs_reference_modmath(op):
+    """The EFU ops the reference computes in jnp: ``negmod``; ``mulmod_shoup``
+    with ``rns.shoup`` companions; ``submod`` then ``mulmod_shoup``.  The
+    first row of each limb holds q − 1 and the scalars include 1 and q − 1."""
+    basis = tuple(jrns.gen_ntt_primes(3, N))
+    xs = [rand(basis, (2,), seed=i) for i in range(elt_ops.ARITY[op])]
+    xs[0][0, :, :] = np.array(basis, dtype=np.uint32)[:, None] - 1
+    sv = np.array([1, 7 << 20, basis[2] - 1], dtype=np.uint32)
+    q = jnp.asarray(np.array(basis, dtype=np.uint32)[:, None])
+    w = jnp.asarray(sv[:, None])
+    ws = jnp.asarray(np.array([[jrns.shoup(int(v), b)] for v, b in zip(sv, basis)],
+                              dtype=np.uint32))
+    a = jnp.asarray(xs[0])
+    if op == "neg":
+        want = jmm.negmod(a, q)
+    elif op == "scale":
+        want = jmm.mulmod_shoup(a, w, ws, q)
+    else:
+        want = jmm.mulmod_shoup(jmm.submod(a, jnp.asarray(xs[1]), q), w, ws, q)
+    got = elt_ops.eltwise(op, basis, *map(t, xs),
+                          scalars=sv if op in elt_ops.SCALED else None)
+    np.testing.assert_array_equal(u32(got), np.asarray(want))
+
+
+def test_eltwise_operand_layout():
+    """The EFU wrapper's (offset, outer, stride) in words for the views the
+    pipeline hands it, read in place; and operands it must copy."""
+    n, ell, K = 16, 46, 12
+    x = torch.zeros((4, ell + K, n), dtype=torch.int32)
+    assert elt_ops.operand_layout(x[..., :ell, :]) == (0, 4, (ell + K) * n)  # ModDown
+    xn = torch.zeros((2, ell + 1, n), dtype=torch.int32)
+    assert elt_ops.operand_layout(xn[..., :-1, :]) == (0, 2, (ell + 1) * n)  # rescale
+    k = torch.zeros((2, 2, ell, n), dtype=torch.int32)
+    assert elt_ops.operand_layout(k[:, 0]) == (0, 2, 2 * ell * n)         # ka
+    assert elt_ops.operand_layout(k[:, 1]) == (ell * n, 2, 2 * ell * n)   # kb
+    assert elt_ops.operand_layout(k[1, 1]) == (3 * ell * n, 1, ell * n)
+    assert elt_ops.operand_layout(k) == (0, 4, ell * n)
+    assert elt_ops.operand_layout(k[:, :, 0:1]) == (0, 4, ell * n)       # ℓ = 1
+    assert elt_ops.operand_layout(k[0].expand(3, 2, ell, n)) is None
+    assert elt_ops.operand_layout(k[0, 0].expand(3, ell, n)) == (0, 3, 0)  # repeated
+    assert elt_ops.operand_layout(k.transpose(0, 1)) is None              # copied
+    assert elt_ops.operand_layout(k[..., :n - 4]) is None
+    assert elt_ops.operand_layout(k.transpose(-1, -2)) is None
+    odd = torch.zeros((3, 1, 6), dtype=torch.int32)[..., :4]
+    assert elt_ops.operand_layout(odd) is None                  # stride 6 words
+
+
+def test_eltwise_cuda_rejects_bad_operands():
+    """Checked before any kernel is built."""
+    basis = tuple(jrns.gen_ntt_primes(2, N))
+    x = t(rand(basis, (2,)))
+    with pytest.raises(TypeError):
+        elt_ops.eltwise_cuda("add", basis, x.to(torch.int64), x.to(torch.int64))
+    with pytest.raises(ValueError):
+        elt_ops.eltwise_cuda("add", basis, x[..., :N - 2], x[..., :N - 2])   # N % 4
+    with pytest.raises(ValueError):
+        elt_ops.eltwise_cuda("add", basis[:1], x, x)                        # ℓ ≠ |basis|
+    with pytest.raises(ValueError):
+        elt_ops.eltwise_cuda("scale", basis, x)                             # no scalars
+    with pytest.raises(ValueError):
+        elt_ops.eltwise_cuda("add", basis, x, x, scalars=np.ones(2, np.uint32))
+    with pytest.raises(ValueError):
+        elt_ops.eltwise_cuda("scale", basis, x, scalars=np.ones(3, np.uint32))
 
 
 # ------------------------------------------------------------------ BConv
