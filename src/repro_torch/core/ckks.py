@@ -27,12 +27,16 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.kernels import native
 from repro_torch.kernels.automorphism import ops as auto_ops
 from repro_torch.kernels.eltwise import ops as elt_ops
 
 from . import bconv as bc
+from . import const_cache
 from . import guards
+from . import modmath as mm
 from . import poly as pl
+from . import rns
 from . import trace
 from .keys import Ciphertext, EvalKey, KeySet
 from .params import CkksParams
@@ -222,6 +226,116 @@ def conjugate(ct: Ciphertext, keys: KeySet) -> Ciphertext:
     return _rot_by_gelt(ct, 2 * ct.a.N - 1, keys)
 
 
+def mul_const(ct: Ciphertext, value: float, params: CkksParams) -> Ciphertext:
+    """ct × scalar with drift-free scale: the constant is encoded at exactly
+    the level's top prime, so the following rescale restores ct.scale."""
+    guards.check_level(ct.basis, 2, "mul_const")
+    trace.record_he("PMultConst")
+    q_top = float(ct.basis[-1])
+    enc = np.array([round(value * q_top) % q for q in ct.basis],
+                   dtype=np.uint32)
+    a = ct.a.to_ntt().mul_scalar(enc)
+    b = ct.b.to_ntt().mul_scalar(enc)
+    return rescale(Ciphertext(a, b, ct.scale * q_top), params, times=1)
+
+
+def _monomial_tables(basis: tuple[int, ...], N: int, power: int, device):
+    """The ψ^{(2k+1)·power} vector of each limb, staged once per (basis, N,
+    power, device): on the card one (ℓ, N) table of u32 bits in int32, the
+    EFU ``mul`` operand; elsewhere the (vector, Shoup companions) pair of
+    int64 tables for ``modmath.mulmod_shoup``.
+
+    Built vectorised from each prime's table of ψ^e, e ∈ [0, 2N): the
+    exponents (2k+1)·power mod 2N index it, so no ℓ·N modular exponentiations
+    run on the host.
+    """
+    def build():
+        e = (2 * np.arange(N, dtype=np.int64) + 1) * power % (2 * N)
+        vec = np.stack([rns.psi_powers(q, N)[e] for q in basis])
+        return vec, (vec << 32) // np.array(basis, dtype=np.int64)[:, None]
+
+    if const_cache.device_of(device).type == "cuda":
+        return const_cache.device_table(("monomial_u32", basis, N, power),
+                                        lambda: build()[0], device, u32_bits=True)
+    return const_cache.device_table(("monomial", basis, N, power), build, device)
+
+
+def mul_monomial(ct: Ciphertext, power: int) -> Ciphertext:
+    """Exact multiplication by X^power (negacyclic) — free: no level, no KS.
+
+    In the natural-order NTT domain this is the pointwise constant vector
+    ψ^{(2k+1)·power} mod q.  power = N/2 multiplies every slot by i (since
+    X^{N/2}(ζ^{5^j}) = i^{5^j} = i); power = 3N/2 by −i.  Used by
+    bootstrapping's re/im splitting to avoid two rescale levels.  On card
+    data each half is one EFU ``mul`` against the staged table; on the CPU a
+    Shoup product, as the reference.  Both give the canonical product.
+    """
+    N = ct.a.N
+    power %= 2 * N
+
+    def apply(p: pl.RnsPoly) -> pl.RnsPoly:
+        x = p.to_ntt()
+        tables = _monomial_tables(x.basis, N, power, x.device)
+        if native.on_cuda(x.data):
+            data = elt_ops.eltwise_cuda("mul", x.basis, x.data, tables)
+        else:
+            vec, shoup = tables
+            data = mm.mulmod_shoup(x.data, vec, shoup, x._q()).to(torch.int32)
+        return pl.RnsPoly(data, x.basis, pl.NTT)
+
+    return Ciphertext(apply(ct.a), apply(ct.b), ct.scale)
+
+
+def match_scale(ct: Ciphertext, target_scale: float,
+                params: CkksParams) -> Ciphertext:
+    """Bring ct.scale to ``target_scale`` exactly (up to 2⁻³⁰ relative).
+
+    Multiplies by the integer e = round(f·q_top), f = target/current, and
+    rescales once — the standard RNS-CKKS drift correction.  Costs one level.
+    """
+    f = target_scale / ct.scale
+    if abs(f - 1.0) < 1e-9:
+        return ct
+    guards.check_level(ct.basis, 2, "match_scale")
+    q_top = ct.basis[-1]
+    e = max(1, round(f * q_top))
+    enc = np.array([e % q for q in ct.basis], dtype=np.uint32)
+    a = ct.a.to_ntt().mul_scalar(enc)
+    b = ct.b.to_ntt().mul_scalar(enc)
+    return rescale(Ciphertext(a, b, ct.scale * e), params, times=1)
+
+
+def add_matched(c1: Ciphertext, c2: Ciphertext, params: CkksParams,
+                sub: bool = False) -> Ciphertext:
+    """Level-aligned, scale-matched add/sub for drift-prone chains (EvalMod).
+
+    The correction (one rescale) is applied to whichever operand has more
+    levels in reserve.
+    """
+    if abs(c1.scale - c2.scale) / c1.scale > 1e-9:
+        if c1.level >= c2.level and c1.level > 1:
+            c1 = match_scale(c1, c2.scale, params)
+        elif c2.level > 1:
+            c2 = match_scale(c2, c1.scale, params)
+    ell = min(c1.level, c2.level)
+    c1, c2 = level_drop(c1, ell), level_drop(c2, ell)
+    return hsub(c1, c2) if sub else hadd(c1, c2)
+
+
+def add_const(ct: Ciphertext, value: float) -> Ciphertext:
+    """ct + scalar: a scalar added to every slot is the constant polynomial
+    value·Δ (slot-wise constant ⇔ constant coefficient only)."""
+    trace.record_he("PAddConst")
+    v = round(value * ct.scale)
+    b = ct.b.to_ntt()
+    N = ct.a.N
+    add_vec = np.zeros(N, dtype=np.int64)
+    add_vec[0] = v
+    data = pl.small_to_rns(add_vec, ct.basis)
+    cpoly = pl.RnsPoly(pl.to_tensor(data, b.device), ct.basis, pl.COEFF).to_ntt()
+    return Ciphertext(ct.a, b + cpoly, ct.scale)
+
+
 def _rot_by_gelt(ct: Ciphertext, g: int, keys: KeySet) -> Ciphertext:
     """(φ(a), φ(b)) is valid under φ(s); switch back to s.
 
@@ -401,6 +515,31 @@ def hrot_many(cts: list[Ciphertext], rotations: list[int],
     k = _fused_galois_ks(exts, gelts, keys, ell)            # (R, 2, ℓ, N)
     b_rot = _rotated_b(b_stack, gelts)
     _scatter_rotated(out, nontriv, k, b_rot, [c.scale for c in cts])
+    return out
+
+
+def hrot_by_progression(ct: Ciphertext, step: int, count: int,
+                        keys: KeySet) -> list[Ciphertext]:
+    """Minimum key-switching (§V-B): rotations {step, 2·step, …} with ONE evk.
+
+    Returns [rot(ct, j·step) for j in 1..count].  When the keyset only holds
+    evk_{step} (the minimum-KS configuration) the progression is computed
+    recursively — evk traffic ÷ count, at the cost of serial KS.  When a key
+    exists for EVERY multiple and the fused engine is active, the whole
+    progression is one hoisted call: a single ModUp and a single AutoU∘KS
+    launch for all the per-step key-switches.
+    """
+    N = ct.a.N
+    rots = [step * (j + 1) for j in range(count)]
+    if _use_fused():
+        need = {pl.galois_elt(r, N) for r in rots if r % (N // 2) != 0}
+        if need <= set(keys.galois):
+            return hrot_hoisted(ct, rots, keys)
+    out = []
+    cur = ct
+    for _ in range(count):
+        cur = hrot(cur, step, keys)
+        out.append(cur)
     return out
 
 

@@ -81,16 +81,19 @@ def _stage(x, device: torch.device, u32_bits: bool = False):
     return torch.as_tensor(a, device=device)
 
 
-def device_table(key: Hashable, builder: Callable[[], Any], device) -> Any:
+def device_table(key: Hashable, builder: Callable[[], Any], device,
+                 u32_bits: bool = False) -> Any:
     """Stage an ad-hoc constant (numpy array or tuple of them) once per
-    (key, device); the result is int64 tensors."""
+    (key, device); the result is int64 tensors, or with ``u32_bits`` the u32
+    bit patterns in int32 (a kernel operand; its key must differ from any
+    int64 table's)."""
     dev = device_of(device)
 
     def stage():
         out = builder()
         if isinstance(out, tuple):
-            return tuple(_stage(o, dev) for o in out)
-        return _stage(out, dev)
+            return tuple(_stage(o, dev, u32_bits) for o in out)
+        return _stage(out, dev, u32_bits)
     return _cache.get((key, str(dev)), stage)
 
 

@@ -128,21 +128,19 @@ def _crt_consts(basis: tuple[int, ...]) -> tuple[int, list[int]]:
     return Q, lift
 
 
+def coefficients(residues: np.ndarray, basis: tuple[int, ...]) -> np.ndarray:
+    """(ℓ, N) residues → the centred integer coefficients (CRT), as float64."""
+    Q, lift = _crt_consts(tuple(basis))
+    res = np.asarray(residues, dtype=np.int64)
+    acc = sum(res[i].astype(object) * lift[i] for i in range(len(basis))) % Q
+    return np.where(acc > Q // 2, acc - Q, acc).astype(np.float64)
+
+
 def decode(residues: np.ndarray, scale: float, basis: tuple[int, ...], N: int,
            num: int | None = None) -> np.ndarray:
     """(ℓ, N) u32 residues → complex message of length ``num`` (default N/2)."""
-    Q, lift = _crt_consts(basis)
-    res = np.asarray(residues, dtype=np.int64)
     n = N // 2
-    vals = np.empty(N, dtype=np.float64)
-    for k in range(N):
-        acc = 0
-        for i in range(len(basis)):
-            acc += int(res[i, k]) * lift[i]
-        acc %= Q
-        if acc > Q // 2:
-            acc -= Q
-        vals[k] = float(acc)
+    vals = coefficients(residues, basis)
     c = vals[:n] + 1j * vals[n:]
     z = embed(c, N) / scale
     return z[: (num or n)]

@@ -200,6 +200,19 @@ def keygen(params: CkksParams, rotations: tuple[int, ...] = (),
     return KeySet(params=params, sk=sk, relin=relin, galois=galois)
 
 
+def add_galois_keys(ks: KeySet, rotations: tuple[int, ...], seed: int = 1,
+                    device="cuda") -> None:
+    """Extend a KeySet with additional rotation keys (idempotent)."""
+    rng = np.random.default_rng(seed)
+    N = ks.params.N
+    for r in rotations:
+        g = pl.galois_elt(r, N)
+        if g in ks.galois:
+            continue
+        s_g = _apply_galois_small(ks.sk.s_small.astype(np.int64), N, g)
+        ks.galois[g] = _make_evk(rng, ks.params, ks.sk, s_g, device)
+
+
 def _negacyclic_small_sq(s: np.ndarray, N: int) -> np.ndarray:
     full = np.convolve(s, s)
     out = full[:N].copy()

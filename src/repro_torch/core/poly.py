@@ -227,6 +227,19 @@ def galois_elt(r: int, N: int) -> int:
     return pow(5, r % (N // 2), M)
 
 
+CONJ_GELT = -1  # sentinel: conjugation uses g = 2N - 1
+
+
+def apply_automorphism_coeff(data: np.ndarray, N: int, g: int,
+                             q: np.ndarray) -> np.ndarray:
+    """Host-side coefficient-domain automorphism with negacyclic signs."""
+    dst, flip = automorphism_perm_coeff(N, g)
+    out = np.zeros_like(data)
+    vals = np.where(flip, (q.reshape(-1, 1) - data) % q.reshape(-1, 1), data)
+    out[..., dst] = vals
+    return out
+
+
 # ----------------------------------------------------------------------------
 # Sampling (host-side numpy; keys and encryption randomness)
 # ----------------------------------------------------------------------------

@@ -96,7 +96,7 @@ def _pack_shoup(values, q: int) -> tuple[np.ndarray, np.ndarray]:
     return w.astype(np.uint32), ((w << WORD_BITS) // q).astype(np.uint32)
 
 
-def _psi_powers(q: int, N: int) -> np.ndarray:
+def psi_powers(q: int, N: int) -> np.ndarray:
     """ψ^e mod q for every e in [0, 2N), as int64 (ψ has order 2N).
 
     Built by doubling: the block [s, 2s) is the block [0, s) times ψ^s.
@@ -133,7 +133,7 @@ class PrimeTables:
 @functools.lru_cache(maxsize=None)
 def prime_tables(q: int, N: int) -> PrimeTables:
     psi = find_psi(q, N)
-    pw = _psi_powers(q, N)
+    pw = psi_powers(q, N)
     rev = bitrev_indices(N)
     w_f, s_f = _pack_shoup(pw[rev], q)                    # ψ^{brev(t)}
     w_i, s_i = _pack_shoup(pw[(2 * N - rev) % (2 * N)], q)  # ψ^{-brev(t)}
@@ -212,7 +212,7 @@ def four_step_tables(q: int, N: int, R: int) -> FourStepTables:
     # table of the 2N powers of ψ by exponent mod 2N (ψ^{-e} = ψ^{2N-e})
     e = np.outer(2 * np.arange(R, dtype=np.int64) + 1,
                  np.arange(C, dtype=np.int64)) % (2 * N)
-    pw = _psi_powers(q, N)
+    pw = psi_powers(q, N)
     tw, tw_s = _pack_shoup(pw[e], q)
     tw_i, tw_is = _pack_shoup(pw[(2 * N - e) % (2 * N)], q)
 

@@ -8,12 +8,16 @@ u32 residues, so both sides compute on the same bytes:
   from the ternary secret, and each evaluation key's PRNG seed and b-halves
   (the a-halves are regenerated from the seed, PRNG evk §V-B);
 * :func:`ciphertext_from_numpy` / :func:`ciphertext_to_numpy` convert a
-  ciphertext from and to ``(a, b, scale, basis, domain)``.
+  ciphertext from and to ``(a, b, scale, basis, domain)``;
+* :func:`bootcontext_from_numpy` builds a bootstrapping context from its key
+  set and its EvalMod and BSGS settings, the transform diagonals rebuilt from
+  this package's own canonical embedding.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .core import bootstrap as B
 from .core import keys as K
 from .core import poly as pl
 from .core.params import CkksParams
@@ -58,3 +62,20 @@ def ciphertext_to_numpy(ct: K.Ciphertext) -> dict:
     assert ct.a.domain == ct.b.domain
     return {"a": pl.to_numpy(ct.a.data), "b": pl.to_numpy(ct.b.data),
             "scale": ct.scale, "basis": ct.basis, "domain": ct.a.domain}
+
+
+def bootcontext_from_numpy(params: CkksParams, s_small: np.ndarray,
+                           relin: tuple[int, list],
+                           galois: dict[int, tuple[int, list]], K_range: int,
+                           cheb_coeffs: np.ndarray, bs: int, use_min_ks: bool,
+                           device="cuda") -> B.BootContext:
+    """A BootContext from its key set (as :func:`keyset_from_numpy` takes
+    it), EvalMod range, Chebyshev coefficients, baby-step count and key-switch
+    mode; the diagonals come from :func:`bootstrap.embedding_diagonals`."""
+    cts_diags, stc_diags = B.embedding_diagonals(params.N)
+    return B.BootContext(
+        params=params,
+        keys=keyset_from_numpy(params, s_small, relin, galois, device),
+        K_range=int(K_range), cheb_coeffs=np.asarray(cheb_coeffs, dtype=np.float64),
+        bs=int(bs), cts_diags=cts_diags, stc_diags=stc_diags,
+        use_min_ks=bool(use_min_ks))

@@ -10,11 +10,13 @@ including past the 15 raw products after which a u64 sum would overflow, and
 the whole CKKS pipeline must give the same bytes on the card as on the CPU.
 """
 import ctypes
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import interop
 from repro_torch.core import ckks, const_cache, encoding as enc, keys as K
 from repro_torch.core import modmath as mm, ntt as nttm, params as prm, poly as pl, rns
 from repro_torch.kernels import config
@@ -457,6 +459,95 @@ def test_pipeline_same_bytes_on_card_and_cpu(dev, engine, monkeypatch):
     for a, b in zip(out["cpu"], out[str(dev)], strict=True):
         assert torch.equal(a.a.data, b.a.data.cpu())
         assert torch.equal(a.b.data, b.b.data.cpu())
+
+
+def test_mul_monomial_on_card_equals_cpu(dev, monkeypatch):
+    """mul_monomial on card data is one EFU ``mul`` per half against the
+    staged ψ table, runs no Shoup product there, and gives the CPU's bytes."""
+    def guarded(*args, _fn=mm.mulmod_shoup, **kwargs):
+        if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            raise AssertionError("plain mulmod_shoup ran on card data")
+        return _fn(*args, **kwargs)
+    monkeypatch.setattr(mm, "mulmod_shoup", guarded)
+    p = prm.test_small()
+    keys = K.keygen(p, seed=3, device="cpu")
+    scale = float(p.q[-1])
+    ct = K.encrypt(enc.encode(np.linspace(-1, 1, 16) + 0.5j, scale, p.q, p.N), scale,
+                   keys.sk, p.q, p.N, device="cpu")
+    d = interop.ciphertext_to_numpy(ct)
+    card = interop.ciphertext_from_numpy(d["a"], d["b"], d["scale"], d["basis"],
+                                         d["domain"], device=dev)
+    for power in (p.N // 2, 3 * p.N // 2, 5):
+        want = ckks.mul_monomial(ct, power)
+        config.reset_launches()
+        got = ckks.mul_monomial(card, power)
+        assert config.kernel_launch_counts() == {"efu": 2}
+        assert torch.equal(got.a.data.cpu(), want.a.data)
+        assert torch.equal(got.b.data.cpu(), want.b.data)
+
+
+@functools.lru_cache(maxsize=None)
+def boot_params():
+    """The card bootstrap's configuration (``chip_smoke.py`` phase bootstrap)."""
+    return prm.make_params(N=1 << 14, L=24, K=4, dnum=6)
+
+
+def card_residues(basis, lead, n, dev, seed):
+    """(*lead, ℓ, n) canonical int32 residues generated on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = const_cache.device_q(basis, dev)
+    raw = torch.randint(0, 2 ** 62, (*lead, len(basis), n), generator=gen,
+                        device=dev, dtype=torch.int64)
+    return (raw % q).to(torch.int32)
+
+
+# case → the launch family its wrapper counts
+BOOT_KERNELS = {"ntt_fwd": "ntt", "ntt_inv": "ntt", "ntt_fwd_ext": "ntt",
+                "automorphism": "automorphism", "automorphism_multi": "automorphism",
+                "bconvu_modup": "bconv", "bconvu_moddown": "bconv", "auto_ks": "auto_ks"}
+
+
+@pytest.mark.parametrize("kernel", sorted(BOOT_KERNELS))
+def test_kernels_at_bootstrap_shapes(dev, kernel):
+    """Each kernel at the shapes of the N = 2¹⁴, L = 24 bootstrap (ℓ = 24,
+    ℓ + K = 28, digits of 4 primes, 127 baby-step rotations in one launch)
+    against its plain version, through the wrapper the path calls."""
+    p = boot_params()
+    n, q, ext = p.N, p.q, p.q + p.p
+    gs = tuple(pl.galois_elt(r, n) for r in range(1, 128))
+    config.reset_launches()
+    if kernel.startswith("ntt"):
+        basis = ext if kernel.endswith("ext") else q
+        x, _ = lazy_residues(basis, (1,), n, dev, seed=14)
+        fwd = kernel.startswith("ntt_fwd")
+        R, _ = ntt_ops.resolve(x, None, None)
+        fc = const_cache.device_four_step_consts(basis, n, R, dev)
+        got = (ntt_ops.ntt_fwd if fwd else ntt_ops.ntt_inv)(x, basis)
+        want = ntt_ops.ntt_plain(x, fc, fwd)
+    elif kernel == "automorphism":
+        x = card_residues(q, (2,), n, dev, seed=15)
+        perm = const_cache.device_galois_perm(n, gs[0], dev)
+        got, want = auto_ops.automorphism(x, perm), auto_ops.automorphism_plain(x, perm)
+    elif kernel == "automorphism_multi":
+        x = card_residues(q, (1,), n, dev, seed=16)
+        perms = const_cache.device_galois_perm_stack(n, gs, dev)
+        got = auto_ops.apply_galois_many(x, n, gs)
+        want = auto_ops.automorphism_multi_plain(x, perms)
+    elif kernel.startswith("bconvu"):
+        src, dst, B = ((q[:4], q[4:] + p.p, 1) if kernel.endswith("modup")
+                       else (p.p, q, 2 * len(gs)))
+        x = card_residues(src, (B,), n, dev, seed=17)
+        got, want = bconv_ops.bconv(x, src, dst), bconv_ops.bconv_plain(x, src, dst)
+    else:
+        exts = card_residues(ext, (p.dnum, 1), n, dev, seed=18)
+        evk_a, evk_b = (card_residues(ext, (len(gs), p.dnum), n, dev, seed=s)
+                        for s in (19, 20))
+        got = auto_ops.auto_ks(exts, evk_a, evk_b, n, gs, ext)
+        perms = const_cache.device_galois_perm_stack(n, gs, dev)
+        want = auto_ops.auto_ks_plain(exts, evk_a, evk_b, perms,
+                                      const_cache.device_q(ext, dev))
+    assert config.launch_counts() == {BOOT_KERNELS[kernel]: 1}
+    assert torch.equal(got, want)
 
 
 def test_launches_follow_the_operands_card():
