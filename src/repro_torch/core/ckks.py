@@ -544,6 +544,153 @@ def hrot_by_progression(ct: Ciphertext, step: int, count: int,
 
 
 # ----------------------------------------------------------------------------
+# Cross-ciphertext batched ops (the serve batcher's dispatch targets)
+#
+# Each *_many op stacks B independent ciphertexts on a leading axis and rides
+# the leading-dim-batched paths — the EFU over (B, ℓ, N), the stacked
+# ModUp/BConv/ModDown chains, hrot_many's fused AutoU∘KS — so a serving batch
+# of one op family is a constant number of kernel launches, not B copies of
+# the single-ciphertext chain.  Every op equals its per-ciphertext
+# counterpart byte for byte: only the dispatch granularity changes.
+# ----------------------------------------------------------------------------
+
+def _stack_polys(ps: list[pl.RnsPoly], device=None) -> pl.RnsPoly:
+    """B same-basis polys → one (B, ℓ, N) NTT-domain poly on ``device``
+    (default: the first poly's): stacked there, then one forward transform
+    of the stack when the members are in the coefficient domain."""
+    device = ps[0].device if device is None else torch.device(device)
+    ps = [p if p.device == device else pl.RnsPoly(p.data.to(device), p.basis, p.domain)
+          for p in ps]
+    if len({p.domain for p in ps}) > 1:
+        ps = [p.to_ntt() for p in ps]
+    stack = torch.stack([p.data for p in ps])
+    return pl.RnsPoly(stack, ps[0].basis, ps[0].domain).to_ntt()
+
+
+def _unstack(p: pl.RnsPoly, i: int) -> pl.RnsPoly:
+    return pl.RnsPoly(p.data[i], p.basis, p.domain)
+
+
+def _check_same_basis(cts: list[Ciphertext], op: str) -> None:
+    basis = cts[0].basis
+    for c in cts:
+        guards.check_basis_match(basis, c.basis, op)
+
+
+def _check_cts(cts: list[Ciphertext], op: str) -> None:
+    """Full-mode corruption scan of a batch's operands, one ciphertext at a
+    time, so the error names the poisoned member (the serve layer's
+    quarantine replay relies on a singleton re-run pinpointing it)."""
+    if guards.full():
+        for i, c in enumerate(cts):
+            guards.check_ciphertext(c, f"{op}[{i}]")
+
+
+def hadd_many(c1s: list[Ciphertext], c2s: list[Ciphertext],
+              sub: bool = False) -> list[Ciphertext]:
+    """B pairwise HAdd/HSub in one stacked dispatch."""
+    assert len(c1s) == len(c2s)
+    if not c1s:
+        return []
+    _check_same_basis(c1s + c2s, "hadd_many")
+    _check_cts(c1s + c2s, "hadd_many")
+    for c1, c2 in zip(c1s, c2s):
+        guards.check_scale_match(c1.scale, c2.scale, "hadd_many")
+    x1 = _stack_polys([c.a for c in c1s] + [c.b for c in c1s])
+    x2 = _stack_polys([c.a for c in c2s] + [c.b for c in c2s])
+    if _use_fused():
+        out = pl.RnsPoly(
+            elt_ops.eltwise("sub" if sub else "add", x1.basis, x1.data, x2.data),
+            x1.basis, pl.NTT)
+    else:
+        out = (x1 - x2) if sub else (x1 + x2)
+    B = len(c1s)
+    return [Ciphertext(_unstack(out, i), _unstack(out, B + i), c1s[i].scale)
+            for i in range(B)]
+
+
+def pmult_many(cts: list[Ciphertext], pts: list[pl.RnsPoly],
+               pt_scales: list[float]) -> list[Ciphertext]:
+    """B ciphertext × per-request plaintext products: the plaintexts go to
+    the ciphertexts' device and into the NTT domain there in one transform,
+    then one product for the a-halves and one for the b-halves."""
+    assert len(cts) == len(pts) == len(pt_scales)
+    if not cts:
+        return []
+    _check_same_basis(cts, "pmult_many")
+    _check_cts(cts, "pmult_many")
+    for i, (c, pt) in enumerate(zip(cts, pts)):
+        guards.check_basis_match(c.basis, pt.basis, f"pmult_many[{i}]")
+    a = _stack_polys([c.a for c in cts])
+    b = _stack_polys([c.b for c in cts])
+    p = _stack_polys(pts, device=a.device)
+    out_a, out_b = a * p, b * p
+    return [Ciphertext(_unstack(out_a, i), _unstack(out_b, i),
+                       cts[i].scale * pt_scales[i]) for i in range(len(cts))]
+
+
+def hmult_many(c1s: list[Ciphertext], c2s: list[Ciphertext],
+               keys: KeySet) -> list[Ciphertext]:
+    """B pairwise HMults sharing one stacked tensor product and one stacked
+    key-switch: ModUp over (B, ℓ, N), each evk digit broadcast against the
+    batch in the inner product, one ModDown."""
+    assert len(c1s) == len(c2s)
+    if not c1s:
+        return []
+    _check_same_basis(c1s + c2s, "hmult_many")
+    guards.check_level(c1s[0].basis, 2, "hmult_many")
+    _check_cts(c1s + c2s, "hmult_many")
+    for _ in c1s:
+        trace.record_he("HMult")
+    a1 = _stack_polys([c.a for c in c1s])
+    b1 = _stack_polys([c.b for c in c1s])
+    a2 = _stack_polys([c.a for c in c2s])
+    b2 = _stack_polys([c.b for c in c2s])
+    d0, d1, d2 = _tensor_products(a1, b1, a2, b2)       # each (B, ℓ, N)
+    ka, kb = key_switch(d2, keys.relin, keys.params)
+    out_a, out_b = d1 + ka, d0 + kb
+    return [Ciphertext(_unstack(out_a, i), _unstack(out_b, i),
+                       c1s[i].scale * c2s[i].scale) for i in range(len(c1s))]
+
+
+def square_many(cts: list[Ciphertext], keys: KeySet) -> list[Ciphertext]:
+    """B squarings batched like :func:`hmult_many`."""
+    if not cts:
+        return []
+    _check_same_basis(cts, "square_many")
+    guards.check_level(cts[0].basis, 2, "square_many")
+    _check_cts(cts, "square_many")
+    a = _stack_polys([c.a for c in cts])
+    b = _stack_polys([c.b for c in cts])
+    d0, d1, d2 = _tensor_products(a, b, a, b)
+    ka, kb = key_switch(d2, keys.relin, keys.params)
+    out_a, out_b = d1 + ka, d0 + kb
+    return [Ciphertext(_unstack(out_a, i), _unstack(out_b, i),
+                       cts[i].scale * cts[i].scale) for i in range(len(cts))]
+
+
+def rescale_many(cts: list[Ciphertext], params: CkksParams,
+                 times: int | None = None) -> list[Ciphertext]:
+    """B rescales in one stacked top-limb-drop chain per prime: all 2B
+    components ride the leading axes, the launch count of one rescale."""
+    if not cts:
+        return []
+    times = params.rescale_primes if times is None else times
+    _check_same_basis(cts, "rescale_many")
+    guards.check_level(cts[0].basis, times + 1, "rescale_many")
+    _check_cts(cts, "rescale_many")
+    a = _stack_polys([c.a for c in cts])
+    b = _stack_polys([c.b for c in cts])
+    scales = [c.scale for c in cts]
+    for _ in range(times):
+        ql = a.basis[-1]
+        a, b, _ = _rescale_once(a, b, 0.0)
+        scales = [s / ql for s in scales]
+    return [Ciphertext(_unstack(a, i), _unstack(b, i), scales[i])
+            for i in range(len(cts))]
+
+
+# ----------------------------------------------------------------------------
 # Rescaling (paper §II-B / §III-C double-prime variant)
 # ----------------------------------------------------------------------------
 

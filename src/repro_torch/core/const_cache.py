@@ -53,14 +53,55 @@ class ConstCache:
             self._store[key] = out
         return out
 
+    def clear(self) -> None:
+        self._store.clear()
+
 
 _cache = ConstCache()
 _stage_events = 0
+
+# Optional pre-staging hook, called as hook(n) before a host→device constant
+# copy is counted (and before it is made).  The fault injector
+# (repro_torch.runtime.faults) installs one that may raise StagingFault; None
+# (the default) costs one test.
+_stage_hook = None
+
+
+def clear() -> None:
+    """Drop every staged constant (tests, device resets)."""
+    _cache.clear()
+
+
+def set_stage_hook(fn) -> None:
+    """Install (or clear, with None) the pre-staging hook."""
+    global _stage_hook
+    _stage_hook = fn
+
+
+def get_stage_hook():
+    """The installed pre-staging hook (None when clear), read by consumers
+    that chain through it and restore it (fault injection, tracing)."""
+    return _stage_hook
 
 
 def stage_events() -> int:
     """Monotonic count of host→device constant staging copies."""
     return _stage_events
+
+
+def record_stage(n: int = 1) -> None:
+    """Count ``n`` staging copies made outside this module (the serve key
+    store's evk stacks), through the same hook, so :func:`stage_events`
+    stays the one steady-state-upload metric."""
+    global _stage_events
+    if _stage_hook is not None:
+        _stage_hook(n)
+    _stage_events += n
+
+
+def stage_events_since(snapshot: int) -> int:
+    """Staging copies since a :func:`stage_events` snapshot."""
+    return _stage_events - snapshot
 
 
 def device_of(device) -> torch.device:
@@ -75,6 +116,8 @@ def _stage(x, device: torch.device, u32_bits: bool = False):
     """One host→device copy: int64 values, or with ``u32_bits`` the u32 bit
     patterns kept in int32 (values ≥ 2³¹ read negative)."""
     global _stage_events
+    if _stage_hook is not None:
+        _stage_hook(1)
     _stage_events += 1
     a = np.asarray(x)
     a = a.astype(np.uint32).view(np.int32) if u32_bits else a.astype(np.int64)

@@ -91,6 +91,15 @@ class EvalKey:
         self._level_cache = None
         self._a_cache = None
 
+    def bytes_logical(self) -> int:
+        """Bytes of both halves of every digit key, as used."""
+        n = sum(p.data.numel() for p in self.b) * 4
+        return 2 * n
+
+    def bytes_stored(self) -> int:
+        """Bytes kept: the b-halves and the 16-byte seed (PRNG evk, §V-B)."""
+        return self.bytes_logical() // 2 + 16
+
 
 @dataclasses.dataclass
 class KeySet:
@@ -129,6 +138,16 @@ class KeySet:
                 self._stack_cache.pop(next(iter(self._stack_cache)))
             out = self._stack_cache[key] = (A, B)
         return out
+
+    def drop_device_caches(self) -> None:
+        """Release every derived evk form: the stacked galois digit keys,
+        the per-level slices and the regenerated a-halves.  The serve key
+        store calls this on eviction and after a failed staging; the next
+        use rebuilds them."""
+        self._stack_cache.clear()
+        self.relin.drop_level_cache()
+        for ek in self.galois.values():
+            ek.drop_level_cache()
 
 
 def _digit_interp_factors(params: CkksParams) -> list[list[int]]:

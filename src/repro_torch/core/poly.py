@@ -115,9 +115,14 @@ class RnsPoly:
 
     def _efu(self, op: str, *others: "RnsPoly", scalars=None,
              domain: str | None = None) -> "RnsPoly":
-        """``op`` on the EFU kernel (card data), int32 in and out."""
-        data = elt_ops.eltwise_cuda(op, self.basis, self.data,
-                                    *(o.data for o in others), scalars=scalars)
+        """``op`` on the EFU kernel (card data), int32 in and out.  Operands
+        of different shapes broadcast as on the CPU: the smaller one (an evk
+        digit against a batch of digit extensions) is expanded to a stride-0
+        view, which the kernel reads in place."""
+        datas = [self.data, *(o.data for o in others)]
+        shape = torch.broadcast_shapes(*(d.shape for d in datas))
+        datas = [d if d.shape == shape else d.expand(shape) for d in datas]
+        data = elt_ops.eltwise_cuda(op, self.basis, *datas, scalars=scalars)
         return RnsPoly(data, self.basis, domain or self.domain)
 
     def __add__(self, o: "RnsPoly") -> "RnsPoly":

@@ -85,6 +85,7 @@ def automorphism_cuda(x: torch.Tensor, perm: torch.Tensor,
     B = x.numel() // N if N else 0
     rows = config.effective_block(max(B, 1), rows_per_cta)
     out = torch.empty_like(x)
+    config.before_launch("automorphism")
     with native.on_device(x):
         err = native.lib("automorphism").automorphism_rows_launch(
             x.data_ptr(), perm.data_ptr(), out.data_ptr(), B, N, rows,
@@ -116,6 +117,7 @@ def automorphism_eager_cuda(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor
     _require_words(x, perm)
     P, ell, N = x.shape
     out = torch.empty_like(x)
+    config.before_launch("automorphism")
     with native.on_device(x):
         err = native.lib("automorphism").automorphism_eager_launch(
             x.data_ptr(), perm.data_ptr(), out.data_ptr(), P * ell, N,
@@ -169,6 +171,7 @@ def automorphism_multi_cuda(x: torch.Tensor, perms: torch.Tensor) -> torch.Tenso
     R = perms.shape[0]
     _require_words(x, perms)
     out = torch.empty((R, L, N), dtype=torch.int32, device=x.device)
+    config.before_launch("automorphism")
     with native.on_device(x):
         err = native.lib("automorphism").automorphism_multi_launch(
             x.data_ptr(), perms.data_ptr(), out.data_ptr(), G, R, L, N,
@@ -230,6 +233,7 @@ def auto_ks_cuda(exts: torch.Tensor, evk_a: torch.Tensor, evk_b: torch.Tensor,
     q = const_cache.device_q(tuple(basis), dev)
     mu = const_cache.device_barrett(tuple(basis), dev)
     out = torch.empty((R, 2, L, N), dtype=torch.int32, device=dev)
+    config.before_launch("auto_ks")
     with native.on_device(exts):
         err = native.lib("automorphism").auto_ks_launch(
             exts.data_ptr(), evk_a.data_ptr(), evk_b.data_ptr(), galois.data_ptr(),

@@ -104,6 +104,7 @@ def bconv_cuda(x: torch.Tensor, src: tuple[int, ...], dst: tuple[int, ...]) -> t
     chunk = chunk_plan(B, K, N, resident_ctas(ell, x.device))
     c = const_cache.device_bconv_consts(src, dst, x.device)
     out = torch.empty((B, K, N), dtype=torch.int32, device=x.device)
+    config.before_launch("bconv")
     with native.on_device(x):
         err = native.lib("bconv").bconv_launch(
             flat.data_ptr(), c.q_src.data_ptr(), c.qhat_inv.data_ptr(),

@@ -9,8 +9,16 @@ only which family: the single-permutation, eager and multi-permutation
 kernels all count under "automorphism".  Launches are mirrored into an active
 :class:`repro_torch.core.trace.OpTrace`.
 
+Each wrapper also calls :func:`before_launch` just ahead of its launch, which
+runs the optional launch hook (fault injection, tracing) *before* the kernel
+writes its output, as the reference's ``count_launch`` does.  A hook that
+raises leaves the launch uncounted and no output published, so a retry of the
+op is always safe.
+
 There is no interpret or compiled mode: a CUDA tensor runs the kernel, a CPU
-tensor the plain version.  :func:`backend` names what this process has.
+tensor the plain version.  :func:`backend` names what this process has, and
+:func:`mode_launch_counts` reports every launch under the one mode the port
+has, "cuda".
 """
 from __future__ import annotations
 
@@ -22,6 +30,16 @@ from repro_torch.core import trace as _hetrace
 
 _launches: collections.Counter = collections.Counter()
 _kernel_launches: collections.Counter = collections.Counter()
+
+# Optional pre-launch hook, called as hook(family, n) by :func:`before_launch`
+# ahead of every kernel launch.  The fault injector (repro_torch.runtime.faults)
+# installs one that may raise; None (the default) costs one test.
+_launch_hook = None
+
+#: The one execution mode of the port's kernels (the reference has
+#: "interpret" and "compiled"; a CPU tensor here runs the plain version and
+#: launches nothing).
+MODE = "cuda"
 
 
 def backend() -> str:
@@ -39,8 +57,28 @@ def effective_block(B: int, requested: int | None, default: int = 4) -> int:
     return max(d for d in range(1, want + 1) if B % d == 0)
 
 
+def set_launch_hook(fn) -> None:
+    """Install (or clear, with None) the pre-launch hook."""
+    global _launch_hook
+    _launch_hook = fn
+
+
+def get_launch_hook():
+    """The installed pre-launch hook (None when clear); consumers that wrap
+    it (fault injection, tracing) chain through it and restore it on exit."""
+    return _launch_hook
+
+
+def before_launch(family: str, n: int = 1) -> None:
+    """Run the launch hook for ``n`` launches of ``family``; every wrapper
+    calls this just before it launches, ahead of any output write."""
+    if _launch_hook is not None:
+        _launch_hook(family, n)
+
+
 def count_launch(family: str, kernel: str, n: int = 1) -> None:
-    """Record ``n`` launches of ``kernel``, a member of ``family``."""
+    """Record ``n`` launches of ``kernel``, a member of ``family``, after
+    they were issued (a launch whose hook raised is never counted)."""
     _launches[family] += n
     _kernel_launches[kernel] += n
     _hetrace.record_launch(family, n)
@@ -49,6 +87,23 @@ def count_launch(family: str, kernel: str, n: int = 1) -> None:
 def launch_counts() -> dict:
     """Snapshot of per-family launch counts since the last reset."""
     return dict(_launches)
+
+
+def total_launches() -> int:
+    return sum(_launches.values())
+
+
+def mode_launch_counts() -> dict:
+    """Per-mode per-family launch counts, ``{"cuda": {family: n}}``: the
+    port has one mode, so there is no interpret or compiled figure."""
+    return {MODE: dict(_launches)}
+
+
+def launches_since(snapshot: dict) -> dict:
+    """Per-family deltas against a :func:`launch_counts` snapshot (families
+    with no change omitted)."""
+    return {fam: n - snapshot.get(fam, 0) for fam, n in _launches.items()
+            if n - snapshot.get(fam, 0)}
 
 
 def kernel_launch_counts() -> dict:

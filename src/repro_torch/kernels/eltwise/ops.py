@@ -165,6 +165,7 @@ def eltwise_cuda(op: str, basis: tuple[int, ...], *arrays: torch.Tensor,
     w = (const_cache.device_efu_scalars(basis, scalars, dev).data_ptr()
          if scalars is not None else None)
     pad = 4 - len(arrays)
+    config.before_launch("eltwise")
     with native.on_device(out):
         err = native.lib("eltwise").efu_launch(
             _CODE[op], *(a.data_ptr() for a in views), *[None] * pad,

@@ -148,6 +148,7 @@ def ntt_cuda(x: torch.Tensor, fc: nttm.FourStepConsts, forward: bool,
     out = torch.empty_like(x)
     lib = native.lib("ntt")
     launch = lib.ntt_fwd_launch if forward else lib.ntt_inv_launch
+    config.before_launch("ntt")
     with native.on_device(x):
         err = launch(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
                      x.numel() // N, ell, R, C, cluster,

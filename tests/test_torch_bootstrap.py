@@ -6,18 +6,19 @@ Configuration ``make_params(N=2⁷, L=14, K=2, dnum=7)`` with
 seed=0)``; the port runs on the CPU, where every kernel wrapper takes its
 plain version.
 
-* Live against JAX (skipped without ``jax``): one module-scoped fixture runs
-  the JAX package once on its eager engines (eager CKKS, eager BConv) and the
-  port's eager engine repeats each op on the same ciphertexts and keys,
-  carried across with :mod:`repro_torch.interop`.
-* Against the recorded digests (no JAX): the whole bootstrap and a degree-5
-  ``eval_chebyshev`` on both engines, against the SHA-256 digests that
-  ``tests/make_torch_bootstrap_ref.py`` recorded from the JAX package in
-  ``tests/torch_bootstrap_ref.json`` (the JAX bootstrap takes many minutes).
+* Op by op, against the SHA-256 digests ``tests/make_torch_bootstrap_ref.py
+  --live`` recorded from the JAX package's eager engines (eager CKKS, eager
+  BConv) under ``live`` in ``tests/torch_bootstrap_ref.json``: the port's
+  ``setup_bootstrap`` context, carried across with
+  :mod:`repro_torch.interop`, and its eager engine on the same three inputs;
+  ``apply_automorphism_coeff`` live against the JAX package (skipped
+  without ``jax``).
+* The whole bootstrap and a degree-5 ``eval_chebyshev`` on both engines,
+  against the digests the same script recorded (the JAX bootstrap takes
+  many minutes).
 * The port alone: the hoisted branch of ``hrot_by_progression``, the
   reference's fast bootstrap tests, and the bootstrap's precision.
 """
-import hashlib
 import json
 import os
 
@@ -25,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from make_torch_bootstrap_ref import (LIVE_OPS, NEW_ROTATIONS, context_record,
+                                      evk_record, inputs, live_ops, record)
 from repro_torch import interop
 from repro_torch.core import bconv, bootstrap as B, ckks, encoding as enc
 from repro_torch.core import keys as K, params as prm, poly as pl
@@ -35,143 +38,52 @@ with open(os.path.join(os.path.dirname(__file__), "torch_bootstrap_ref.json")) a
 CFG = REF["config"]
 BOOT = {k: CFG[k] for k in ("hamming", "K_range", "cheb_deg", "use_min_ks", "seed")}
 ENGINES = {"fused": "kernel", "eager": "eager"}       # CKKS engine → BConv engine
-# the ops held live against the JAX package, one test case each
-LIVE_OPS = ("mul_const", "mul_monomial_half", "mul_monomial_three_halves",
-            "match_scale", "add_matched_rescales_c2", "sub_matched_rescales_c1",
-            "add_const", "hrot_by_progression_0", "hrot_by_progression_1",
-            "mod_raise", "linear_transform")
-LT_DIAGS = (0, 5, 37)
-NEW_ROTATIONS = (1, 16, 24)        # 1 has a key already; 16, 24 are new
 
 
 def boot_params():
     return prm.make_params(N=CFG["N"], L=CFG["L"], K=CFG["K"], dnum=CFG["dnum"])
 
 
-def digest(ct) -> str:
-    """SHA-256 of the u32 bytes of a, then b (as the recording script)."""
-    h = hashlib.sha256()
-    for x in (ct.a.data, ct.b.data):
-        h.update(np.ascontiguousarray(pl.to_numpy(x)).tobytes())
-    return h.hexdigest()
-
-
 def message(n):
     return np.random.default_rng(CFG["z_seed"]).normal(size=n) * CFG["z_scale"]
 
 
-def _np_ct(ct):
-    return {"a": np.asarray(ct.a.data), "b": np.asarray(ct.b.data),
-            "scale": ct.scale, "basis": ct.basis, "domain": ct.a.domain}
-
-
 def _np_evk(ek):
-    return int(ek.seed), [np.asarray(b.data) for b in ek.b]
-
-
-def _port_ct(d):
-    return interop.ciphertext_from_numpy(d["a"], d["b"], d["scale"], d["basis"],
-                                         d["domain"], device=CPU)
-
-
-def assert_ct_equal(got: K.Ciphertext, want: dict):
-    assert got.basis == tuple(want["basis"])
-    assert got.a.domain == want["domain"] and got.b.domain == want["domain"]
-    assert got.scale == want["scale"]
-    np.testing.assert_array_equal(pl.to_numpy(got.a.data), want["a"])
-    np.testing.assert_array_equal(pl.to_numpy(got.b.data), want["b"])
-
-
-def _inputs(p):
-    """(message, scale, encryption seed, limbs kept) of the three input
-    ciphertexts: the full basis at scale q_L; 13 limbs at scale 1.0012·q_L;
-    one limb at scale q₁.  Each is encrypted at the full basis and dropped to
-    its limbs, so the reference compiles one encryption shape."""
-    rng = np.random.default_rng(11)
-    z = rng.normal(size=16) + 1j * rng.normal(size=16)
-    return ((z, float(p.q[-1]), 3, p.L), (z[::-1], 1.0012 * float(p.q[-1]), 4, 13),
-            (z.real * 0.05, float(p.q[0]), 5, 1))
-
-
-def _lt_diags(n):
-    rng = np.random.default_rng(12)
-    diags = {d: np.zeros(n, dtype=np.complex128) for d in range(n)}
-    for d in LT_DIAGS:
-        diags[d] = rng.normal(size=n) + 1j * rng.normal(size=n)
-    return diags
-
-
-def _ops(mod_ckks, mod_B, cts, keys, ctx, p):
-    """{op: ciphertext} of every live op, in one order for both packages."""
-    ct, ct13, ct1 = cts
-    N = p.N
-    prog = mod_ckks.hrot_by_progression(ct, 1, 2, keys)
-    return {"mul_const": mod_ckks.mul_const(ct, 0.37, p),
-            "mul_monomial_half": mod_ckks.mul_monomial(ct, N // 2),
-            "mul_monomial_three_halves": mod_ckks.mul_monomial(ct, 3 * N // 2),
-            "match_scale": mod_ckks.match_scale(ct, 1.0012 * ct.scale, p),
-            "add_matched_rescales_c2": mod_ckks.add_matched(ct13, ct, p),
-            "sub_matched_rescales_c1": mod_ckks.add_matched(ct, ct13, p, sub=True),
-            "add_const": mod_ckks.add_const(ct, -0.25),
-            "hrot_by_progression_0": prog[0], "hrot_by_progression_1": prog[1],
-            "mod_raise": mod_B.mod_raise(ct1, p),
-            "linear_transform": mod_B.linear_transform(ct, _lt_diags(p.slots), ctx)}
+    return int(ek.seed), [pl.to_numpy(b.data) for b in ek.b]
 
 
 @pytest.fixture(scope="module")
 def ref():
-    """Everything the JAX package computes, as numpy, built once on its eager
-    engines."""
-    pytest.importorskip("jax")
-    from repro.core import bconv as jbc, bootstrap as jB, ckks as jckks
-    from repro.core import encoding as jenc, keys as jK, params as jprm
-
-    p = jprm.make_params(N=CFG["N"], L=CFG["L"], K=CFG["K"], dnum=CFG["dnum"])
-    out = {}
-    with jckks.use_engine("eager"), jbc.use_engine("eager"):
-        ctx = jB.setup_bootstrap(p, **BOOT)
-        keys = ctx.keys
-        out["ctx"] = {"s_small": np.asarray(keys.sk.s_small),
-                      "relin": _np_evk(keys.relin),
-                      "galois": {g: _np_evk(ek) for g, ek in keys.galois.items()},
-                      "K_range": ctx.K_range, "cheb_coeffs": ctx.cheb_coeffs,
-                      "bs": ctx.bs, "use_min_ks": ctx.use_min_ks,
-                      "cts_diags": ctx.cts_diags, "stc_diags": ctx.stc_diags}
-        cts = [jckks.level_drop(jK.encrypt(jenc.encode(z, s, p.q, p.N), s,
-                                           keys.sk, p.q, p.N,
-                                           rng=np.random.default_rng(seed)), ell)
-               for z, s, seed, ell in _inputs(p)]
-        out["cts"] = [_np_ct(c) for c in cts]
-        out["ops"] = {k: _np_ct(c) for k, c in
-                      _ops(jckks, jB, cts, keys, ctx, p).items()}
-        before = dict(keys.galois)
-        jK.add_galois_keys(keys, NEW_ROTATIONS, seed=1)
-        out["added"] = {g: _np_evk(ek) for g, ek in keys.galois.items()
-                        if g not in before}
-        after = dict(keys.galois)
-        jK.add_galois_keys(keys, NEW_ROTATIONS, seed=1)
-        out["idempotent"] = keys.galois == after and all(
-            keys.galois[g] is after[g] for g in after)
-    return out
+    """The JAX package's eager-engine records (``live`` of
+    tests/torch_bootstrap_ref.json)."""
+    return REF["live"]
 
 
 @pytest.fixture(scope="module")
-def port(ref):
-    """The port's eager engine on the JAX context and ciphertexts (CPU)."""
+def port():
+    """The port's ``setup_bootstrap`` context, a copy carried across with
+    :mod:`repro_torch.interop` from its secret and keys, and the eager engine's
+    ops on that copy and three native encryptions (CPU)."""
     p = boot_params()
-    c = ref["ctx"]
+    mine = B.setup_bootstrap(p, **BOOT, device=CPU)
+    keys = mine.keys
     ctx = interop.bootcontext_from_numpy(
-        p, c["s_small"], c["relin"], c["galois"], c["K_range"], c["cheb_coeffs"],
-        c["bs"], c["use_min_ks"], device=CPU)
-    cts = [_port_ct(d) for d in ref["cts"]]
+        p, keys.sk.s_small.copy(), _np_evk(keys.relin),
+        {g: _np_evk(ek) for g, ek in keys.galois.items()}, mine.K_range,
+        mine.cheb_coeffs, mine.bs, mine.use_min_ks, device=CPU)
+    cts = [ckks.level_drop(K.encrypt(enc.encode(z, s, p.q, p.N), s, ctx.keys.sk,
+                                     p.q, p.N, rng=np.random.default_rng(seed),
+                                     device=CPU), ell)
+           for z, s, seed, ell in inputs(p)]
     with ckks.use_engine("eager"), bconv.use_engine("eager"):
-        ops = _ops(ckks, B, cts, ctx.keys, ctx, p)
-    return {"params": p, "ctx": ctx, "ops": ops}
+        ops = live_ops(ckks, B, cts, ctx.keys, ctx, p)
+    return {"params": p, "mine": mine, "ctx": ctx, "cts": cts, "ops": ops}
 
 
 @pytest.mark.parametrize("op", LIVE_OPS)
 def test_op_matches_reference(ref, port, op):
-    assert_ct_equal(port["ops"][op], ref["ops"][op])
+    assert [record(c) for c in port["cts"]] == ref["cts"]
+    assert record(port["ops"][op]) == ref["ops"][op]
 
 
 def test_add_galois_keys_matches_reference(ref, port):
@@ -180,17 +92,14 @@ def test_add_galois_keys_matches_reference(ref, port):
     keys = port["ctx"].keys
     before = dict(keys.galois)
     K.add_galois_keys(keys, NEW_ROTATIONS, seed=1, device=CPU)
-    added = {g: ek for g, ek in keys.galois.items() if g not in before}
-    assert sorted(added) == sorted(ref["added"]) and len(added) == 2
-    for g, (seed, bs) in ref["added"].items():
-        assert added[g].seed == seed
-        for got, want in zip(added[g].b, bs, strict=True):
-            np.testing.assert_array_equal(pl.to_numpy(got.data), want)
+    added = {str(g): evk_record(ek) for g, ek in keys.galois.items()
+             if g not in before}
+    assert added == ref["added"] and len(added) == 2
     after = dict(keys.galois)
     K.add_galois_keys(keys, NEW_ROTATIONS, seed=1, device=CPU)
     assert all(keys.galois[g] is after[g] for g in after) and keys.galois == after
     assert ref["idempotent"]
-    for g in added:                       # leave the shared context as it was
+    for g in set(keys.galois) - set(before):     # leave the shared context as it was
         del keys.galois[g]
 
 
@@ -208,25 +117,11 @@ def test_apply_automorphism_coeff_matches_reference():
 
 
 def test_bootcontext_from_numpy_matches_setup_bootstrap(ref, port):
-    """The JAX context carried across equals the port's own setup: diagonals,
-    Chebyshev coefficients, BSGS split and keys."""
-    mine = B.setup_bootstrap(port["params"], **BOOT, device=CPU)
-    carried = port["ctx"]
-    c = ref["ctx"]
-    for name in ("cts_diags", "stc_diags"):
-        for d, want in c[name].items():
-            np.testing.assert_array_equal(getattr(mine, name)[d], want)
-            np.testing.assert_array_equal(getattr(carried, name)[d], want)
-    np.testing.assert_array_equal(mine.cheb_coeffs, c["cheb_coeffs"])
-    assert (mine.bs, mine.K_range, mine.use_min_ks) == (c["bs"], c["K_range"],
-                                                       c["use_min_ks"])
-    np.testing.assert_array_equal(mine.keys.sk.s_small, c["s_small"])
-    assert sorted(mine.keys.galois) == sorted(c["galois"])
-    for ek, (seed, bs) in [(mine.keys.relin, c["relin"])] + [
-            (mine.keys.galois[g], c["galois"][g]) for g in c["galois"]]:
-        assert ek.seed == seed
-        for got, want in zip(ek.b, bs, strict=True):
-            np.testing.assert_array_equal(pl.to_numpy(got.data), want)
+    """The port's own setup and the context carried across from its secret
+    and keys both equal the JAX package's: diagonals, Chebyshev
+    coefficients, BSGS split and keys."""
+    assert context_record(port["mine"]) == ref["ctx"]
+    assert context_record(port["ctx"]) == ref["ctx"]
 
 
 # ---------------------------------------------------- the recorded digests
@@ -258,10 +153,8 @@ def boot_run(request):
 @pytest.mark.parametrize("stage", DIGEST_STAGES)
 def test_bootstrap_matches_recorded_reference(boot_run, stage):
     want = REF["engines"][boot_run["engine"]][stage]
-    ct = boot_run["stages"][stage]
-    assert (ct.scale, list(ct.basis), ct.level, ct.a.domain) == (
-        want["scale"], want["basis"], want["level"], want["domain"])
-    assert digest(ct) == want["sha256"]
+    assert record(boot_run["stages"][stage]) == {k: want[k] for k in (
+        "sha256", "scale", "basis", "level", "domain")}
 
 
 def test_bootstrap_precision_and_levels(boot_run):
@@ -294,7 +187,7 @@ def test_bootstrap_stage_errors(boot_run):
     assert got["mod_raise_exact"]
     assert all(got[k] < b for k, b in STAGE_BOUNDS.items()), got
     assert got["signal_corr"] > 0.9999
-    assert digest(got["out"]) == REF["engines"][engine]["bootstrap"]["sha256"]
+    assert record(got["out"])["sha256"] == REF["engines"][engine]["bootstrap"]["sha256"]
 
 
 @pytest.mark.parametrize("step", ("cts", "eval_mod", "stc"))

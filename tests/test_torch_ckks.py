@@ -3,38 +3,34 @@
 keygen → encrypt → hmult → rescale → hrot_hoisted([1, 4]) → decrypt at
 ``test_small``, on the fused engine and separately on the eager engine (the
 two engines give different valid ciphertexts by design, so like is compared
-with like).  The JAX reference runs once per module, fused first and eager
-after it in the same process; the port runs on the CPU, where every kernel
-wrapper takes its plain version.  Tolerance: exact equality.
+with like).  The port runs on the CPU, where every kernel wrapper takes its
+plain version, and is held against the SHA-256 digests of the JAX package's
+bytes that ``tests/make_torch_ckks_ref.py`` recorded in
+``tests/torch_ckks_ref.json`` (the key material, both ciphertexts, each
+stage's ciphertext and its decryption).  Tolerance: exact equality.
 """
+import json
+import os
+
 import numpy as np
 import pytest
+import torch
 
-pytest.importorskip("jax")
-
-import torch  # noqa: E402
-
-from repro.core import ckks as jckks  # noqa: E402
-from repro.core import encoding as jenc  # noqa: E402
-from repro.core import keys as jK  # noqa: E402
-from repro.core import params as jprm  # noqa: E402
-from repro_torch import interop  # noqa: E402
-from repro_torch.core import ckks, guards, keys as K, params as prm  # noqa: E402
-from repro_torch.core import encoding as enc  # noqa: E402
-from repro_torch.core import poly as pl  # noqa: E402
-from repro_torch.kernels import config  # noqa: E402
+from make_torch_ckks_ref import ROTS, STAGES, ct_record, messages, sha
+from repro_torch import interop
+from repro_torch.core import ckks, guards, keys as K, params as prm
+from repro_torch.core import encoding as enc
+from repro_torch.core import poly as pl
+from repro_torch.kernels import config
 
 CPU = torch.device("cpu")
-ROTS = [1, 4]
 ENGINES = ("fused", "eager")
-STAGES = ("hmult", "rescale", "rot1", "rot4")
+with open(os.path.join(os.path.dirname(__file__), "torch_ckks_ref.json")) as _f:
+    REF = json.load(_f)
 
 
 def _messages():
-    rng = np.random.default_rng(0)
-    z1 = rng.normal(size=8) + 1j * rng.normal(size=8)
-    z2 = rng.normal(size=8) + 1j * rng.normal(size=8)
-    return z1, z2
+    return messages()
 
 
 def _pipeline(ckks_mod, ct1, ct2, keys, params, engine):
@@ -46,43 +42,21 @@ def _pipeline(ckks_mod, ct1, ct2, keys, params, engine):
     return dict(zip(STAGES, [m, r, *rots]))
 
 
-def _np_ct(ct):
-    return {"a": np.asarray(ct.a.data), "b": np.asarray(ct.b.data),
-            "scale": ct.scale, "basis": ct.basis, "domain": ct.a.domain}
-
-
 def _np_evk(ek):
-    return int(ek.seed), [np.asarray(b.data) for b in ek.b]
+    return int(ek.seed), [pl.to_numpy(b.data) for b in ek.b]
 
 
 @pytest.fixture(scope="module")
 def ref():
-    """Everything the JAX package computes, as numpy, built once."""
-    p = jprm.test_small()
-    keys = jK.keygen(p, rotations=(1, 4), seed=0)
-    scale = float(p.q[-1])
-    z1, z2 = _messages()
-    cts = [jK.encrypt(jenc.encode(z, scale, p.q, p.N), scale, keys.sk, p.q, p.N,
-                      rng=np.random.default_rng(i + 1))
-           for i, z in enumerate((z1, z2))]
-    out = {"s_small": np.asarray(keys.sk.s_small),
-           "relin": _np_evk(keys.relin),
-           "relin_a": [np.asarray(a.data) for a in keys.relin.a()],
-           "galois": {g: _np_evk(ek) for g, ek in keys.galois.items()},
-           "cts": [_np_ct(c) for c in cts]}
-    for engine in ENGINES:
-        stages = _pipeline(jckks, *cts, keys, p, engine)
-        out[engine] = {s: _np_ct(c) for s, c in stages.items()}
-        out[engine + "_dec"] = {s: np.asarray(jK.decrypt(c, keys.sk))
-                                for s, c in stages.items()}
-    return out
+    """The JAX package's digests (tests/torch_ckks_ref.json)."""
+    return REF
 
 
 @pytest.fixture(scope="module")
 def port():
     """The port's keys, ciphertexts and pipelines on the CPU."""
     p = prm.test_small()
-    keys = K.keygen(p, rotations=(1, 4), seed=0, device=CPU)
+    keys = K.keygen(p, rotations=tuple(ROTS), seed=0, device=CPU)
     scale = float(p.q[-1])
     z1, z2 = _messages()
     cts = [K.encrypt(enc.encode(z, scale, p.q, p.N), scale, keys.sk, p.q, p.N,
@@ -97,33 +71,44 @@ def port():
 
 
 def assert_ct_equal(got: K.Ciphertext, want: dict):
-    assert got.basis == tuple(want["basis"])
-    assert got.a.domain == want["domain"] and got.b.domain == want["domain"]
-    assert got.scale == want["scale"]
+    """Equal to a recorded ciphertext: basis, domain, scale and the SHA-256
+    of the u32 bytes of a, then b."""
     assert got.a.data.dtype == torch.int32
-    np.testing.assert_array_equal(pl.to_numpy(got.a.data), want["a"])
-    np.testing.assert_array_equal(pl.to_numpy(got.b.data), want["b"])
+    assert ct_record(pl.to_numpy(got.a.data), pl.to_numpy(got.b.data), got.scale,
+                     got.basis, got.a.domain) == {k: want[k] for k in (
+                         "sha256", "scale", "basis", "domain")}
+    assert got.b.domain == want["domain"]
 
 
 # -------------------------------------------------------------- key material
 
 def test_keygen_matches_reference(ref, port):
     keys = port["keys"]
-    np.testing.assert_array_equal(keys.sk.s_small, ref["s_small"])
-    assert sorted(keys.galois) == sorted(ref["galois"])
-    for ek, (seed, bs) in [(keys.relin, ref["relin"])] + [
-            (keys.galois[g], ref["galois"][g]) for g in ref["galois"]]:
-        assert ek.seed == seed
-        for got, want in zip(ek.b, bs, strict=True):
-            np.testing.assert_array_equal(pl.to_numpy(got.data), want)
-    for got, want in zip(keys.relin.a(), ref["relin_a"], strict=True):
-        np.testing.assert_array_equal(pl.to_numpy(got.data), want)
+    assert sha(keys.sk.s_small) == ref["s_small"]
+    assert sorted(keys.galois) == sorted(int(g) for g in ref["galois"])
+    for ek, want in [(keys.relin, ref["relin"])] + [
+            (keys.galois[int(g)], w) for g, w in ref["galois"].items()]:
+        assert ek.seed == want["seed"]
+        assert [sha(pl.to_numpy(b.data)) for b in ek.b] == want["b"]
+    assert [sha(pl.to_numpy(a.data)) for a in keys.relin.a()] == ref["relin"]["a"]
 
 
 def test_interop_keyset_equals_native_keygen(ref, port):
-    ks = interop.keyset_from_numpy(port["params"], ref["s_small"], ref["relin"],
-                                   ref["galois"], device=CPU)
+    """A KeySet built from the secret and the (seed, b-halves) of each key —
+    each input held here to the JAX package's digests — equals the native
+    keygen's, a-halves regenerated from the seeds included."""
     native = port["keys"]
+    s_small = native.sk.s_small.copy()
+    assert sha(s_small) == ref["s_small"]
+    relin = _np_evk(native.relin)
+    galois = {g: _np_evk(ek) for g, ek in native.galois.items()}
+    assert sorted(galois) == sorted(int(g) for g in ref["galois"])
+    for (seed, bs), want in [(relin, ref["relin"])] + [
+            (galois[int(g)], w) for g, w in ref["galois"].items()]:
+        assert seed == want["seed"]
+        assert [sha(b) for b in bs] == want["b"]
+    ks = interop.keyset_from_numpy(port["params"], s_small, relin, galois,
+                                   device=CPU)
     for a, b in [(ks.relin, native.relin)] + [
             (ks.galois[g], native.galois[g]) for g in native.galois]:
         assert a.seed == b.seed
@@ -131,11 +116,15 @@ def test_interop_keyset_equals_native_keygen(ref, port):
             assert torch.equal(x.data, y.data)
 
 
-def test_interop_ciphertext_round_trip(ref):
-    want = ref["cts"][0]
+def test_interop_ciphertext_round_trip(ref, port):
+    """u32 arrays → ciphertext → u32 arrays, the ciphertext held to the JAX
+    package's digest of the first encryption."""
+    want = interop.ciphertext_to_numpy(port["cts"][0])
+    for k in ("a", "b"):
+        assert want[k].dtype == np.uint32
     ct = interop.ciphertext_from_numpy(want["a"], want["b"], want["scale"],
                                        want["basis"], want["domain"], device=CPU)
-    assert_ct_equal(ct, want)
+    assert_ct_equal(ct, ref["cts"][0])
     back = interop.ciphertext_to_numpy(ct)
     for k in ("a", "b"):
         assert back[k].dtype == np.uint32
@@ -154,7 +143,7 @@ def test_encrypt_matches_reference(ref, port):
 @pytest.mark.parametrize("stage", STAGES)
 @pytest.mark.parametrize("engine", ENGINES)
 def test_pipeline_ciphertext_matches_reference(ref, port, engine, stage):
-    assert_ct_equal(port[engine][stage], ref[engine][stage])
+    assert_ct_equal(port[engine][stage], ref["engines"][engine][stage])
 
 
 @pytest.mark.parametrize("stage", STAGES)
@@ -162,7 +151,7 @@ def test_pipeline_ciphertext_matches_reference(ref, port, engine, stage):
 def test_pipeline_decrypt_matches_reference(ref, port, engine, stage):
     got = K.decrypt(port[engine][stage], port["keys"].sk)
     assert got.dtype == np.uint32
-    np.testing.assert_array_equal(got, ref[engine + "_dec"][stage])
+    assert sha(got) == ref["engines"][engine][stage]["decrypt_sha256"]
 
 
 @pytest.mark.parametrize("engine", ENGINES)

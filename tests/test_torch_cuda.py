@@ -11,15 +11,18 @@ the whole CKKS pipeline must give the same bytes on the card as on the CPU.
 """
 import ctypes
 import functools
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import torch_serve_wave as W
 from repro_torch import interop
 from repro_torch.core import ckks, const_cache, encoding as enc, keys as K
 from repro_torch.core import modmath as mm, ntt as nttm, params as prm, poly as pl, rns
-from repro_torch.kernels import config
+from repro_torch.kernels import config, native
 from repro_torch.kernels.automorphism import ops as auto_ops, ref as auto_ref
 from repro_torch.kernels.bconv import ops as bconv_ops, ref as bconv_ref
 from repro_torch.kernels.eltwise import ops as elt_ops
@@ -588,3 +591,169 @@ def test_launches_follow_the_operands_card():
         assert torch.cuda.current_device() == 0
     for got, want in pairs:
         assert got.device == d1 and torch.equal(got, want)
+
+
+# ------------------------------------------------------- serving slice
+
+# kernel → (its library, its launch function, its launch family)
+HOOKED = {"efu": ("eltwise", "efu_launch", "eltwise"),
+          "bconvu": ("bconv", "bconv_launch", "bconv"),
+          "ntt_fwd": ("ntt", "ntt_fwd_launch", "ntt"),
+          "ntt_inv": ("ntt", "ntt_inv_launch", "ntt"),
+          "automorphism": ("automorphism", "automorphism_rows_launch", "automorphism"),
+          "automorphism_eager": ("automorphism", "automorphism_eager_launch",
+                                 "automorphism"),
+          "automorphism_multi": ("automorphism", "automorphism_multi_launch",
+                                 "automorphism"),
+          "auto_ks": ("automorphism", "auto_ks_launch", "auto_ks")}
+
+
+def hooked_case(kernel, dev):
+    """(the kernel's wrapper call, its plain version) at N = 1024."""
+    basis = tuple(rns.gen_ntt_primes(3, N))
+    x = pl.to_tensor(residue_words(basis, (2,), N, seed=31), dev)
+    gs = (pl.galois_elt(1, N), pl.galois_elt(4, N))
+    perm = const_cache.device_galois_perm(N, gs[0], dev)
+    perms = const_cache.device_galois_perm_stack(N, gs, dev)
+    if kernel == "efu":
+        return (lambda: elt_ops.eltwise_cuda("mul", basis, x, x),
+                lambda: elt_ops.eltwise_plain("mul", basis, x, x))
+    if kernel == "bconvu":
+        dst = tuple(rns.gen_ntt_primes(2, N, exclude=basis))
+        return (lambda: bconv_ops.bconv_cuda(x, basis, dst),
+                lambda: bconv_ops.bconv_plain(x, basis, dst))
+    if kernel in ("ntt_fwd", "ntt_inv"):
+        fwd = kernel == "ntt_fwd"
+        R, cluster = ntt_ops.resolve(x, None, None)
+        fc = const_cache.device_four_step_consts(basis, N, R, dev)
+        return (lambda: ntt_ops.ntt_cuda(x, fc, fwd, cluster),
+                lambda: ntt_ops.ntt_plain(x, fc, fwd))
+    if kernel == "automorphism":
+        return (lambda: auto_ops.automorphism_cuda(x, perm, 4),
+                lambda: auto_ops.automorphism_plain(x, perm))
+    if kernel == "automorphism_eager":
+        return (lambda: auto_ops.automorphism_eager_cuda(x, perm),
+                lambda: auto_ops.automorphism_eager_plain(x, perm))
+    if kernel == "automorphism_multi":
+        return (lambda: auto_ops.automorphism_multi_cuda(x[:1], perms),
+                lambda: auto_ops.automorphism_multi_plain(x[:1], perms))
+    ev = [pl.to_tensor(residue_words(basis, (2, 2), N, seed=s), dev) for s in (32, 33)]
+    return (lambda: auto_ops.auto_ks_cuda(x[:, None], ev[0], ev[1], gs, basis),
+            lambda: auto_ops.auto_ks_plain(x[:, None], ev[0], ev[1], perms,
+                                           const_cache.device_q(basis, dev)))
+
+
+class HookFault(Exception):
+    pass
+
+
+@pytest.mark.parametrize("kernel", sorted(HOOKED))
+def test_launch_hook_runs_before_the_kernel_launches(dev, kernel, monkeypatch):
+    """A launch hook that raises stops the wrapper before its kernel is
+    launched: no launch function call, no count, no output; without the
+    hook the same call launches once and equals the plain version."""
+    lib, fn, family = HOOKED[kernel]
+    launched = []
+    real = getattr(native.lib(lib), fn)
+    monkeypatch.setattr(native.lib(lib), fn,
+                        lambda *a: launched.append(1) or real(*a))
+    call, plain = hooked_case(kernel, dev)
+    fired = []
+
+    def hook(fam, n):
+        fired.append((fam, n, len(launched)))
+        raise HookFault(fam)
+    config.reset_launches()
+    config.set_launch_hook(hook)
+    try:
+        with pytest.raises(HookFault):
+            call()
+    finally:
+        config.set_launch_hook(None)
+    assert fired == [(family, 1, 0)] and not launched
+    assert config.launch_counts() == {}
+    got = call()
+    assert launched == [1] and config.launch_counts() == {family: 1}
+    assert torch.equal(got, plain())
+
+
+def serve_params():
+    return prm.make_params(N=W.CONFIG["N"], L=W.CONFIG["L"], K=W.CONFIG["K"],
+                           dnum=W.CONFIG["dnum"])
+
+
+def test_ks_inner_broadcasts_the_evk_without_a_copy(dev, monkeypatch):
+    """hmult_many's relinearization multiplies each (B, ℓ+K, N) digit
+    extension by an (ℓ+K, N) evk half: on the card the EFU reads the evk as
+    a stride-0 view, copies nothing, and gives the CPU's bytes."""
+    guard_plain_ring_ops(monkeypatch)
+    p = serve_params()
+    d = residue_words(p.q, (3,), p.N, seed=34)
+    out = {}
+    for device in ("cpu", dev):
+        keys = K.keygen(p, seed=0, device=device)
+        x = pl.RnsPoly(pl.to_tensor(d, device), p.q, pl.NTT)
+        exts = ckks.mod_up_all_digits(x, p)
+        elt_ops.reset_copy_counts()
+        config.reset_launches()
+        out[str(device)] = ckks.ks_inner(exts, keys.relin, p, p.L)
+        assert elt_ops.copy_counts() == {}
+    assert config.kernel_launch_counts().get("efu", 0) >= 2 * p.dnum
+    for a, b in zip(out["cpu"], out[str(dev)], strict=True):
+        assert torch.equal(a.data, b.data.cpu())
+
+
+@pytest.mark.parametrize("engine", ["fused", "eager"])
+def test_batched_ops_same_bytes_on_card_and_cpu(dev, engine, monkeypatch):
+    """hadd_many (add, sub), pmult_many, hmult_many, square_many,
+    rescale_many and hrot_many — equal rotations, as the standard program
+    makes, and mixed ones — give the same bytes on the card as on the CPU."""
+    guard_plain_ring_ops(monkeypatch)
+    p = serve_params()
+    out = {}
+    for device in ("cpu", dev):
+        api = W.port_api(device)
+        keys = W.keysets_for(K, p, device=device)["alice"]
+        reqs = W.wave(api, p, {"alice": keys}, 3, 40)
+        c1s = [r.inputs["x"] for r, _ in reqs]
+        c2s = [r.inputs["y"] for r, _ in reqs]
+        pts = [api.coeff_poly(api.encode(np.full(4, 0.5 + i), float(p.q[-1]), p.q,
+                                         p.N), p.q) for i in range(3)]
+        elt_ops.reset_copy_counts()
+        with ckks.use_engine(engine):
+            prods = ckks.hmult_many(c1s, c2s, keys)
+            res = ckks.rescale_many(prods, p)
+            out[str(device)] = (
+                ckks.hadd_many(c1s, c2s) + ckks.hadd_many(c1s, c2s, sub=True)
+                + ckks.pmult_many(c1s, pts, [float(p.q[-1])] * 3) + prods
+                + ckks.square_many(c1s, keys) + res
+                + ckks.hrot_many(res, [1, 1, 1], keys)
+                + ckks.hrot_many(c1s, [1, 0, 1], keys))
+        assert elt_ops.copy_counts() == {}
+    for a, b in zip(out["cpu"], out[str(dev)], strict=True):
+        assert a.scale == b.scale and a.basis == b.basis
+        assert torch.equal(a.a.to_ntt().data, b.a.to_ntt().data.cpu())
+        assert torch.equal(a.b.to_ntt().data, b.b.to_ntt().data.cpu())
+
+
+@pytest.mark.parametrize("engine", ["fused", "eager"])
+def test_served_wave_same_bytes_on_card_and_cpu(dev, engine, monkeypatch):
+    """The mixed wave served batched gives the same bytes on the card as on
+    the CPU, the JAX package's recorded digests, and launches the kernels."""
+    guard_plain_ring_ops(monkeypatch)
+    with open(os.path.join(os.path.dirname(__file__), "torch_serve_ref.json")) as f:
+        ref = json.load(f)
+    p = serve_params()
+    records = {}
+    with ckks.use_engine(engine):
+        for device in ("cpu", dev):
+            keysets = W.keysets_for(K, p, device=device)
+            config.reset_launches()
+            records[str(device)], reqs, _ = W.serve(W.port_api(device), p,
+                                                    keysets, "batched")
+            assert all(r.result()["out"].a.device.type == torch.device(device).type
+                       for r, _ in reqs)
+    launches = config.kernel_launch_counts()
+    assert records["cpu"]["outputs"] == records[str(dev)]["outputs"] \
+        == ref["engines"][engine]["batched"]["outputs"]
+    assert all(launches.get(k, 0) > 0 for k in ("efu", "ntt_fwd", "ntt_inv", "bconvu"))
