@@ -37,7 +37,10 @@ with ``nvcc`` and runs, each phase printing one JSON line:
 4. cross    — keygen → encrypt → hmult → rescale → hrot_hoisted([1, 4]) at
               ``test_medium`` on the CPU (plain versions) and on the card
               (kernels), on the fused and on the eager engine: every
-              ciphertext must have equal bytes;
+              ciphertext must have equal bytes, and the op trace of the ops
+              alone (keygen and encryption outside it) equal counts, calls
+              and HE ops on both devices (launches differ by design: the
+              CPU's plain versions launch nothing);
 5. pipeline — the same pipeline at ``paper_full`` on the card with |z| ≤ 1,
               then the eager engine's hoisted pair: decode error against
               plaintext math must be < 1e-2; each op runs with the launch
@@ -103,16 +106,35 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               and view the path gives it; wave seconds, requests/s,
               launches per kernel of the warm wave, peak memory and the
               decode error reported;
-11. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
+11. analytics — the analytics slice (``core/{mapping,cost_model,
+              area_model}``, ``workloads``, ``tracing.cost_crosscheck``) on
+              the card's main path: hmult, rescale, ``hrot`` 1 and the
+              hoisted pair {1, 4} on the fused engine and the eager
+              engine's hoisted pair at ``paper_full``, each warm under
+              ``trace_ops()`` on the pipeline phase's keys and ciphertexts:
+              the trace's launch mirror equal to the launch counters' deltas
+              per family, the NTT+iNTT limbs and BConv MACs equal to the
+              virtual executor's (hmult with rescale, hrot, the hoisted
+              pair), ``cost_crosscheck``'s predicted and observed launches
+              per family beside the warm ms and the CiFHER model's time;
+              the same mirror and crosscheck for a warm wave of phase
+              ``serve`` served once more under ``trace_ops()`` there (its
+              launches equal to the untraced warm wave's); and
+              the CiFHER cost model's Table III rows (5 workloads × 4, 16,
+              64 cores: model ms for the paper's ASIC package, not H100
+              times, and package mm²) equal to the JAX package's values
+              recorded in ``tests/torch_trace_ref.json``;
+12. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               (R × cluster size) and the single permutation at N = 2¹⁶,
               ℓ = 48, its cache in a temporary directory;
-12. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
+13. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
               (every kernel against its plain version at small shapes and at
               the bootstrap's N = 2¹⁴ shapes, the NTT at every cluster size of
               every split it is tested at);
 
 then the kernel table as one JSON line (launches: the pipeline's pass, one
-warm bootstrap and one warm served wave, and each path's share), and the
+warm bootstrap, one warm served wave and the analytics phase's traced ops
+and wave, and each path's share), and the
 result line
 ``{"ok": true, "device": {...}}`` last.  Any failure raises: the script exits
 non-zero and prints no result.  It imports nothing of JAX.
@@ -123,6 +145,7 @@ import collections
 import contextlib
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -133,7 +156,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT / "tests"))      # torch_serve_wave: the wave
+sys.path.insert(0, str(ROOT / "tests"))      # the wave, the trace records
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT_OPS_PER_S = 67e12          # H100 SXM CUDA-core peak (no integer-unit entry)
@@ -695,10 +718,13 @@ def kernels_checked():
 def _pipeline(params, device, z1, z2, rotations=(1, 4), warm_reps=0):
     """keygen → encrypt, then the ops once, each with the launch counters
     reset just before and read just after (the cold run, which also stages
-    the constants and regenerates the evk a-halves), then ``warm_reps`` more
-    runs whose median per-op times are the steady-state latencies."""
+    the constants and regenerates the evk a-halves), the op trace of that
+    run alone recorded; then ``warm_reps`` more runs whose median per-op
+    times are the steady-state latencies.  Returns {"keys", "inputs" (the
+    two ciphertexts), "out" ({stage: ciphertext}), "times", "launches",
+    "trace"}."""
     import numpy as np
-    from repro_torch.core import encoding as enc, keys as K
+    from repro_torch.core import encoding as enc, keys as K, trace as TR
     from repro_torch.kernels.eltwise import ops as elt_ops
 
     sync = _sync_for(device)
@@ -712,7 +738,7 @@ def _pipeline(params, device, z1, z2, rotations=(1, 4), warm_reps=0):
     sync()
     times = {"keygen_encrypt_s": time.perf_counter() - t0}
     elt_ops.reset_copy_counts()
-    with plain_calls_on_card() as plain:
+    with plain_calls_on_card() as plain, TR.trace_ops() as trace:
         out, cold, launches = _run_ops(cts, keys, params, rotations, sync)
     if plain:
         raise AssertionError(f"plain versions ran on card data: {dict(plain)}")
@@ -723,7 +749,8 @@ def _pipeline(params, device, z1, z2, rotations=(1, 4), warm_reps=0):
             for _ in range(warm_reps)]
     if warm:
         times.update({k: statistics.median(w[k] for w in warm) for k in cold})
-    return keys, out, times, launches
+    return {"keys": keys, "inputs": cts, "out": out, "times": times,
+            "launches": launches, "trace": trace}
 
 
 def _messages(n, seed):
@@ -737,22 +764,37 @@ def phase_cross():
     """Equal bytes from the plain versions on the CPU and the kernels on the
     card, on both engines."""
     import torch
+    from make_torch_trace_ref import trace_record
     from repro_torch.core import ckks, params as prm
     p = prm.test_medium()
     z1, z2 = _messages(8, 1), _messages(8, 2)
-    equal, gpu_launches = {}, {}
+    equal, gpu_launches, traces, trace_equal = {}, {}, {}, {}
     for engine in ("fused", "eager"):
         with ckks.use_engine(engine):
-            _, cpu, _, _ = _pipeline(p, "cpu", z1, z2)
-            _, gpu, _, gpu_launches[engine] = _pipeline(p, DEVICE, z1, z2)
-        for stage in cpu:
+            cpu = _pipeline(p, "cpu", z1, z2)
+            gpu = _pipeline(p, DEVICE, z1, z2)
+        gpu_launches[engine] = gpu["launches"]
+        for stage in cpu["out"]:
+            x, y = cpu["out"][stage], gpu["out"][stage]
             equal[f"{engine}/{stage}"] = bool(
-                torch.equal(cpu[stage].a.data, gpu[stage].a.data.cpu())
-                and torch.equal(cpu[stage].b.data, gpu[stage].b.data.cpu()))
+                torch.equal(x.a.data, y.a.data.cpu())
+                and torch.equal(x.b.data, y.b.data.cpu()))
+        # the ops' trace alone: equal records on both devices; launches
+        # differ by design (the CPU's plain versions launch nothing)
+        views = [trace_record(r["trace"]) for r in (cpu, gpu)]
+        trace_equal[engine] = views[0] == views[1]
+        traces[engine] = {"calls": views[1]["calls"], "he_ops": views[1]["he_ops"],
+                          "gpu_launches": dict(gpu["trace"].launches),
+                          "cpu_launches": dict(cpu["trace"].launches)}
     emit({"phase": "cross", "params": "test_medium", "N": p.N, "L": p.L,
-          "equal": equal, "gpu_launches": gpu_launches})
+          "equal": equal, "gpu_launches": gpu_launches,
+          "trace_equal": trace_equal, "traces": traces})
     if not all(equal.values()):
         raise AssertionError(f"CPU and GPU ciphertexts differ: {equal}")
+    if not all(trace_equal.values()):
+        raise AssertionError(f"CPU and GPU op traces differ: {trace_equal}")
+    if any(t["cpu_launches"] for t in traces.values()):
+        raise AssertionError("the CPU's plain versions launched a kernel")
     if not any(ops.get("hoisted_rotations", {}).get("automorphism", 0)
                for ops in gpu_launches.values()):
         raise AssertionError("the eager engine never ran the single-permutation kernel")
@@ -775,7 +817,8 @@ def phase_pipeline(params):
     tables_s = time.perf_counter() - t0
     n = 16
     z1, z2 = _messages(n, 1), _messages(n, 2)
-    keys, cts, times, launches = _pipeline(params, DEVICE, z1, z2, warm_reps=5)
+    run = _pipeline(params, DEVICE, z1, z2, warm_reps=5)
+    keys, cts, times, launches = run["keys"], run["out"], run["times"], run["launches"]
     # the eager engine's hoisted pair: permutes the hoisted digits and b
     # through RnsPoly.automorphism, the single-permutation kernel
     sync = _sync_for(DEVICE)
@@ -822,7 +865,8 @@ def phase_pipeline(params):
     for kernel in FUSED_PATH_KERNELS + EAGER_PATH_KERNELS:
         if total[kernel] <= 0:
             raise AssertionError(f"kernel {kernel} never launched: {dict(total)}")
-    return dict(total)
+    return dict(total), {"keys": keys, "inputs": run["inputs"],
+                         "rescale": cts["rescale"]}
 
 
 BOOT_REF = ROOT / "tests" / "torch_bootstrap_ref.json"
@@ -1134,6 +1178,8 @@ def phase_serve():
     import torch_serve_wave as W
     from repro_torch import serve as S
     from repro_torch.core import encoding as enc, keys as K, params as prm
+    from repro_torch.core import trace as TR
+    from repro_torch.kernels import config
     sync = _sync_for(DEVICE)
     p = prm.make_params(**SERVE_PARAMS)
     torch.cuda.reset_peak_memory_stats()
@@ -1164,6 +1210,14 @@ def phase_serve():
     seq_s, seq_l, seq_up = _serve_wave(seq_eng, seq, sync)
     warm = requests()
     warm_s, warm_l, warm_up = _serve_wave(eng, warm, sync)
+    # once more under trace_ops() for the analytics phase: the same launches
+    traced = requests()
+    with TR.trace_ops() as traced_trace:
+        traced_s, traced_l, _ = _serve_wave(eng, traced, sync)
+    traced_families = config.launch_counts()
+    if traced_l != warm_l:
+        raise AssertionError(f"serve: the traced wave launched {traced_l}, "
+                             f"the warm wave {warm_l}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the wave once more on the warm engine, every kernel launch held
     # against its plain version at the shapes and views the path gives it
@@ -1234,9 +1288,131 @@ def phase_serve():
     missing = [k for k in FUSED_PATH_KERNELS if warm_l.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"serve: kernels {missing} never launched: {warm_l}")
-    del eng, seq_eng, store, keysets, wave, cold, seq, warm, checked
+    del eng, seq_eng, store, keysets, wave, cold, seq, warm, traced, checked
     torch.cuda.empty_cache()
-    return warm_l
+    return warm_l, (traced_trace, traced_families, traced_l, traced_s * 1e3,
+                    warm_s * 1e3)
+
+
+TRACE_REF = ROOT / "tests" / "torch_trace_ref.json"
+
+
+def _launch_mirror(t, families, where):
+    """The trace's launch mirror must equal the launch counters' deltas."""
+    mirror = {k: v for k, v in t.launches.items() if v}
+    counted = {k: v for k, v in families.items() if v}
+    if mirror != counted:
+        raise AssertionError(f"{where}: OpTrace.launches {mirror} != "
+                             f"kernels/config deltas {counted}")
+    return counted
+
+
+def _crosscheck(t, ms):
+    """cost_crosscheck per family, the measured warm ms beside the model's
+    time for the paper's 16-core package."""
+    from repro_torch.runtime import tracing
+    xc = tracing.cost_crosscheck(t)
+    families = {fam: {**f, "deviation_pct": f["deviation_pct"]
+                      if math.isfinite(f["deviation_pct"]) else "inf"}
+                for fam, f in xc["families"].items()}     # strict JSON
+    return {"families": families, "warm_ms": ms,
+            "model": "CiFHER cost model, 16-core package (not H100 time)",
+            "model_ms": {k: v * 1e3 for k, v in xc["model_seconds"].items()}}
+
+
+def phase_analytics(params, pipeline, serve_trace):
+    """The slice's analytics on the card: the paper_full ops, warm, under
+    ``trace_ops()`` on the pipeline's keys and ciphertexts — the launch
+    mirror equal to the launch counters, the NTT limbs and BConv MACs equal
+    to the virtual executor's, the crosscheck per family beside the warm
+    ms; the served warm wave's mirror and crosscheck; the CiFHER model's
+    Table III rows against the JAX package's recorded values.  Returns the
+    per-kernel launches of its traced ops and wave, each counted from 0."""
+    from repro_torch.core import ckks, trace as TR
+    from repro_torch.kernels import config
+    from repro_torch.workloads import traces as W
+    from repro_torch.workloads.virtual import VirtualCkks, VirtualCt
+    t0 = time.perf_counter()
+    sync = _sync_for(DEVICE)
+    keys, (c1, c2), r = pipeline["keys"], pipeline["inputs"], pipeline["rescale"]
+    with ckks.use_engine("fused"):
+        m = ckks.hmult(c1, c2, keys)
+    ops = {
+        "hmult": ("fused", lambda: ckks.hmult(c1, c2, keys)),
+        "rescale": ("fused", lambda: ckks.rescale(m, params)),
+        "hrot": ("fused", lambda: ckks.hrot(r, 1, keys)),
+        "hoisted_rotations": ("fused", lambda: ckks.hrot_hoisted(r, [1, 4], keys)),
+        "eager_hoisted_rotations": ("eager",
+                                    lambda: ckks.hrot_hoisted(r, [1, 4], keys)),
+    }
+    traces, results, kernels = {}, {}, collections.Counter()
+    with plain_calls_on_card() as plain:
+        for name, (engine, fn) in ops.items():
+            with ckks.use_engine(engine):
+                fn()                                   # warm
+                sync()
+                with TR.trace_ops() as t:
+                    _, ms, per_kernel = _timed_op(fn, sync)
+                families = config.launch_counts()
+            kernels.update(per_kernel)
+            traces[name] = t
+            results[name] = {"engine": engine, "launches": _launch_mirror(t, families, name),
+                             **_crosscheck(t, ms)}
+    if plain:
+        raise AssertionError(f"plain versions ran on card data: {dict(plain)}")
+    # real against virtual, at the paper's widths
+    hm_rs = TR.OpTrace()
+    hm_rs.merge(traces["hmult"])
+    hm_rs.merge(traces["rescale"])
+    virtual = {}
+    v = VirtualCkks(params)
+    v.hmult(VirtualCt(c1.level), rescale=True)
+    virtual["hmult_rescale"] = (hm_rs, v.t)
+    v = VirtualCkks(params)
+    v.hrot(VirtualCt(r.level))
+    virtual["hrot"] = (traces["hrot"], v.t)
+    for name in ("hoisted_rotations", "eager_hoisted_rotations"):
+        v = VirtualCkks(params)
+        v.hrot_hoisted(VirtualCt(r.level), 2)
+        virtual[name] = (traces[name], v.t)
+    real_vs_virtual = {
+        name: {"ntt_limbs": [real.limb_transforms(), virt.limb_transforms()],
+               "bconv_macs": [real.bconv_macs(), virt.bconv_macs()]}
+        for name, (real, virt) in virtual.items()}
+    # the served warm wave, captured in phase serve
+    wave_t, wave_families, wave_kernels, wave_ms, untraced_ms = serve_trace
+    kernels.update(wave_kernels)
+    wave = {"launches": _launch_mirror(wave_t, wave_families, "served warm wave"),
+            **_crosscheck(wave_t, wave_ms), "untraced_warm_ms": untraced_ms,
+            "he_ops": dict(wave_t.he_ops)}
+    # Table III, the CiFHER model's, against the JAX package's values
+    rows = W.table3_rows()
+    want = json.loads(TRACE_REF.read_text())["table3"]
+    table3 = [{k: row[k] for k in ("workload", "cores", "t_ms", "t_compute_ms",
+                                    "t_nop_ms", "t_hbm_ms", "rel_edap",
+                                    "package_area_mm2")} for row in rows]
+    emit({"phase": "analytics", "params": "paper_full", "N": params.N,
+          "L": params.L, "ops": results, "real_vs_virtual": real_vs_virtual,
+          "served_warm_wave": wave, "launches": dict(kernels),
+          "table3_equals_jax": rows == want,
+          "table3": {"model": "CiFHER cost model (the paper's ASIC package, "
+                              "not H100 time)", "rows": table3},
+          "seconds": time.perf_counter() - t0})
+    bad = {k: v for k, v in real_vs_virtual.items()
+           if v["ntt_limbs"][0] != v["ntt_limbs"][1]
+           or v["bconv_macs"][0] != v["bconv_macs"][1]}
+    if bad:
+        raise AssertionError(f"real and virtual traces differ: {bad}")
+    if rows != want:
+        raise AssertionError("Table III rows differ from the JAX package's")
+    for name, res in results.items():
+        if not res["launches"]:
+            raise AssertionError(f"{name}: launched no kernel")
+    missing = [k for k in FUSED_PATH_KERNELS + EAGER_PATH_KERNELS if kernels[k] <= 0]
+    if missing:
+        raise AssertionError(f"analytics: kernels {missing} never launched: "
+                             f"{dict(kernels)}")
+    return dict(kernels)
 
 
 def phase_autotune(params, cache_file):
@@ -1346,17 +1522,20 @@ def main() -> int:
         paper = prm.paper_full()
         rows = phase_kernels(paper)
         phase_cross()
-        launches = phase_pipeline(paper)
+        launches, pipeline = phase_pipeline(paper)
         phase_boot_cross()
         boot_launches = phase_bootstrap()
         phase_boot_precision()
         phase_serve_cross()
-        serve_launches = phase_serve()
+        serve_launches, serve_trace = phase_serve()
+        analytics_launches = phase_analytics(paper, pipeline, serve_trace)
+        del pipeline
         phase_autotune(paper, cache_file)
         autotune.set_cache_path(None)
     phase_card_tests()
     table = kernel_table(rows, {"pipeline": launches, "bootstrap": boot_launches,
-                                "serve": serve_launches})
+                                "serve": serve_launches,
+                                "analytics": analytics_launches})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -613,7 +613,14 @@ def pmult_many(cts: list[Ciphertext], pts: list[pl.RnsPoly],
                pt_scales: list[float]) -> list[Ciphertext]:
     """B ciphertext × per-request plaintext products: the plaintexts go to
     the ciphertexts' device and into the NTT domain there in one transform,
-    then one product for the a-halves and one for the b-halves."""
+    then one product for the a-halves and one for the b-halves.
+
+    The trace holds the reference's records of the products — one
+    ``("elt_mul", ℓ, N, 2B)``, and on the eager engine the one product of
+    the (2B, ℓ, N) stack — and one ``("ntt", ℓ, N)`` per plaintext in the
+    coefficient domain (the reference transforms each plaintext twice, once
+    per half; the port once).  The stacked transform and the two products
+    record nothing of their own."""
     assert len(cts) == len(pts) == len(pt_scales)
     if not cts:
         return []
@@ -623,8 +630,16 @@ def pmult_many(cts: list[Ciphertext], pts: list[pl.RnsPoly],
         guards.check_basis_match(c.basis, pt.basis, f"pmult_many[{i}]")
     a = _stack_polys([c.a for c in cts])
     b = _stack_polys([c.b for c in cts])
-    p = _stack_polys(pts, device=a.device)
-    out_a, out_b = a * p, b * p
+    for pt in pts:
+        if pt.domain == pl.COEFF:
+            trace.record("ntt", pt.ell, pt.N)
+    with trace.unrecorded():
+        p = _stack_polys(pts, device=a.device)
+        out_a, out_b = a * p, b * p
+    B, ell, N = len(cts), len(a.basis), cts[0].a.N
+    trace.record("elt_mul", ell, N, 2 * B)
+    if not _use_fused():
+        trace.record("elt_mul", 2 * B * ell, N)
     return [Ciphertext(_unstack(out_a, i), _unstack(out_b, i),
                        cts[i].scale * pt_scales[i]) for i in range(len(cts))]
 

@@ -98,6 +98,12 @@ _active: contextvars.ContextVar[OpTrace | None] = contextvars.ContextVar(
     "he_trace", default=None)
 
 
+# Set inside :func:`unrecorded`: primitive and HE-op records are dropped,
+# kernel launches still mirrored.
+_muted: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "he_trace_muted", default=False)
+
+
 class trace_ops:
     """Context manager activating an OpTrace."""
 
@@ -113,15 +119,31 @@ class trace_ops:
         return False
 
 
+class unrecorded:
+    """Context manager under which :func:`record` and :func:`record_he`
+    record nothing, while :func:`record_launch` still mirrors every launch:
+    for work the port does differently from the reference (one stacked
+    transform where the reference transforms each member) and records
+    itself in the reference's terms."""
+
+    def __enter__(self):
+        self._tok = _muted.set(True)
+        return self
+
+    def __exit__(self, *exc):
+        _muted.reset(self._tok)
+        return False
+
+
 def record(func: str, n_limbs: int, n_coeff: int, count: int = 1):
     t = _active.get()
-    if t is not None:
+    if t is not None and not _muted.get():
         t.add(func, n_limbs, n_coeff, count)
 
 
 def record_he(op: str):
     t = _active.get()
-    if t is not None:
+    if t is not None and not _muted.get():
         t.add_he(op)
 
 

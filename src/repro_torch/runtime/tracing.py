@@ -37,10 +37,10 @@ Exports per captured run:
   per-family launch / upload / fault attribution per span path, no
   wall-clock) that CI gates exactly across seeded runs;
 * :func:`metrics_snapshot` / :func:`render_prometheus` — counters +
-  p50/p95/p99 histograms as JSON or Prometheus exposition text.
-
-The reference's ``cost_crosscheck`` (launches against the cost model's
-prediction) waits for the port of ``core/cost_model.py``.
+  p50/p95/p99 histograms as JSON or Prometheus exposition text;
+* :func:`cost_crosscheck` — an :class:`~repro_torch.core.trace.OpTrace`'s
+  observed kernel launches per family against the cost model's prediction,
+  with the model's time breakdown.
 """
 from __future__ import annotations
 
@@ -52,7 +52,7 @@ import os
 import threading
 import time
 
-from repro_torch.core import const_cache
+from repro_torch.core import const_cache, cost_model
 from repro_torch.kernels import config as kconfig
 
 # ----------------------------------------------------------------------------
@@ -600,6 +600,46 @@ def render_prometheus(snap: dict, prefix: str = "repro") -> str:
         emit(f"{base}_count", h["count"])
         emit(f"{base}_sum", h["mean"] * h["count"])
     return "\n".join(lines) + "\n"
+
+
+def cost_crosscheck(op_trace, observed: dict | None = None,
+                    n_cores: int = 16) -> dict:
+    """Reconcile observed kernel launches against the analytic prediction.
+
+    ``op_trace`` is an :class:`~repro_torch.core.trace.OpTrace` captured over
+    the workload; ``observed`` is a per-family launch-count dict (defaults to
+    the trace's own kernel-grain mirror, which equals the ``kernels/config``
+    region deltas by construction).  Returns per-family ``{predicted,
+    observed, deviation_pct}`` (the AutoU and AutoU∘KS launches merged into
+    ``auto``) plus the :func:`repro_torch.core.cost_model.estimate` time
+    breakdown — the CiFHER model's seconds for the paper's package, not the
+    card's.
+    """
+    predicted = cost_model.predict_launches(op_trace)
+    if observed is None:
+        observed = dict(op_trace.launches)
+    merged = {
+        "ntt": observed.get("ntt", 0),
+        "bconv": observed.get("bconv", 0),
+        "auto": observed.get("automorphism", 0) + observed.get("auto_ks", 0),
+        "eltwise": observed.get("eltwise", 0),
+    }
+    families = {}
+    for fam in sorted(predicted):
+        p, o = predicted[fam], merged.get(fam, 0)
+        if p:
+            dev = round(100.0 * (o - p) / p, 3)
+        else:
+            dev = 0.0 if not o else float("inf")
+        families[fam] = {"predicted": p, "observed": o,
+                         "deviation_pct": dev}
+    est = cost_model.estimate(op_trace, cost_model.default_package(n_cores))
+    return {
+        "families": families,
+        "observed_raw": dict(sorted(observed.items())),
+        "model_seconds": {"t_compute": est.t_compute, "t_nop": est.t_nop,
+                          "t_hbm": est.t_hbm, "t_total": est.t_total},
+    }
 
 
 # ----------------------------------------------------------------------------

@@ -15,7 +15,8 @@ plain version.
   without ``jax``).
 * The whole bootstrap and a degree-5 ``eval_chebyshev`` on both engines,
   against the digests the same script recorded (the JAX bootstrap takes
-  many minutes).
+  many minutes); the bootstrap's op trace against the one
+  ``tests/make_torch_trace_ref.py`` recorded in ``tests/torch_trace_ref.json``.
 * The port alone: the hoisted branch of ``hrot_by_progression``, the
   reference's fast bootstrap tests, and the bootstrap's precision.
 """
@@ -28,14 +29,18 @@ import torch
 
 from make_torch_bootstrap_ref import (LIVE_OPS, NEW_ROTATIONS, context_record,
                                       evk_record, inputs, live_ops, record)
+from make_torch_trace_ref import trace_record
 from repro_torch import interop
 from repro_torch.core import bconv, bootstrap as B, ckks, encoding as enc
 from repro_torch.core import keys as K, params as prm, poly as pl
+from repro_torch.core import trace as TR
 
 CPU = torch.device("cpu")
 with open(os.path.join(os.path.dirname(__file__), "torch_bootstrap_ref.json")) as _f:
     REF = json.load(_f)
 CFG = REF["config"]
+with open(os.path.join(os.path.dirname(__file__), "torch_trace_ref.json")) as _f:
+    TRACE_REF = json.load(_f)["traces"]
 BOOT = {k: CFG[k] for k in ("hamming", "K_range", "cheb_deg", "use_min_ks", "seed")}
 ENGINES = {"fused": "kernel", "eager": "eager"}       # CKKS engine → BConv engine
 
@@ -141,13 +146,15 @@ def boot_run(request):
         scale = float(p.q[0])
         ct = K.encrypt(enc.encode(z, scale, p.q[:1], p.N), scale, ctx.keys.sk,
                        p.q[:1], p.N, device=CPU)
+        with TR.trace_ops() as trace:        # first: its plaintexts cold
+            boot = B.bootstrap(ct, ctx)
         raised = B.mod_raise(ct, p)
         u0, u1 = B.coeff_to_slot(raised, ctx)
         stages = {"mod_raise": raised, "cts_u0": u0, "cts_u1": u1,
-                  "eval_mod_u0": B.eval_mod(u0, ctx),
-                  "bootstrap": B.bootstrap(ct, ctx),
+                  "eval_mod_u0": B.eval_mod(u0, ctx), "bootstrap": boot,
                   "chebyshev5": B.eval_chebyshev(u0, np.array(REF["cheb5"]), ctx)}
-    return {"engine": engine, "params": p, "ctx": ctx, "z": z, "stages": stages}
+    return {"engine": engine, "params": p, "ctx": ctx, "z": z, "stages": stages,
+            "trace": trace}
 
 
 @pytest.mark.parametrize("stage", DIGEST_STAGES)
@@ -155,6 +162,14 @@ def test_bootstrap_matches_recorded_reference(boot_run, stage):
     want = REF["engines"][boot_run["engine"]][stage]
     assert record(boot_run["stages"][stage]) == {k: want[k] for k in (
         "sha256", "scale", "basis", "level", "domain")}
+
+
+def test_bootstrap_trace_matches_reference(boot_run):
+    """The bootstrap's op trace (counts, calls, HE ops) equals the JAX
+    package's, recorded by tests/make_torch_trace_ref.py."""
+    assert trace_record(boot_run["trace"]) == \
+        TRACE_REF["bootstrap"][boot_run["engine"]]
+    assert not boot_run["trace"].launches
 
 
 def test_bootstrap_precision_and_levels(boot_run):

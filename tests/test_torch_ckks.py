@@ -7,7 +7,9 @@ with like).  The port runs on the CPU, where every kernel wrapper takes its
 plain version, and is held against the SHA-256 digests of the JAX package's
 bytes that ``tests/make_torch_ckks_ref.py`` recorded in
 ``tests/torch_ckks_ref.json`` (the key material, both ciphertexts, each
-stage's ciphertext and its decryption).  Tolerance: exact equality.
+stage's ciphertext and its decryption).  Tolerance: exact equality.  The
+op trace of the pipeline (counts, calls, HE ops) is held to the JAX
+package's in ``tests/torch_trace_ref.json`` (``tests/make_torch_trace_ref.py``).
 """
 import json
 import os
@@ -17,16 +19,20 @@ import pytest
 import torch
 
 from make_torch_ckks_ref import ROTS, STAGES, ct_record, messages, sha
+from make_torch_trace_ref import PIPELINE_ROTS, trace_record
 from repro_torch import interop
 from repro_torch.core import ckks, guards, keys as K, params as prm
 from repro_torch.core import encoding as enc
 from repro_torch.core import poly as pl
+from repro_torch.core import trace as TR
 from repro_torch.kernels import config
 
 CPU = torch.device("cpu")
 ENGINES = ("fused", "eager")
 with open(os.path.join(os.path.dirname(__file__), "torch_ckks_ref.json")) as _f:
     REF = json.load(_f)
+with open(os.path.join(os.path.dirname(__file__), "torch_trace_ref.json")) as _f:
+    TRACE_REF = json.load(_f)["traces"]
 
 
 def _messages():
@@ -65,7 +71,8 @@ def port():
     config.reset_launches()
     out = {"params": p, "keys": keys, "cts": cts, "z": (z1, z2)}
     for engine in ENGINES:
-        out[engine] = _pipeline(ckks, *cts, keys, p, engine)
+        with TR.trace_ops() as out["trace", engine]:
+            out[engine] = _pipeline(ckks, *cts, keys, p, engine)
     out["launches"] = config.launch_counts()
     return out
 
@@ -78,6 +85,17 @@ def assert_ct_equal(got: K.Ciphertext, want: dict):
                      got.basis, got.a.domain) == {k: want[k] for k in (
                          "sha256", "scale", "basis", "domain")}
     assert got.b.domain == want["domain"]
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_pipeline_trace_matches_reference(port, engine):
+    """The op trace of hmult → rescale → hrot_hoisted([1, 4]) (counts, calls,
+    HE ops) equals the JAX package's, recorded by
+    tests/make_torch_trace_ref.py; the CPU launches nothing."""
+    assert ROTS == PIPELINE_ROTS
+    t = port["trace", engine]
+    assert trace_record(t) == TRACE_REF["pipeline"][engine]
+    assert not t.launches
 
 
 # -------------------------------------------------------------- key material

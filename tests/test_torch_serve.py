@@ -6,16 +6,18 @@ L=4, K=2, dnum=2)``, tenants "alice" and "bob" with
 ``keygen(rotations=(1,), seed=i)``; the port runs on the CPU, where every
 kernel wrapper takes its plain version.
 
-* Live against JAX (skipped without ``jax``): one module-scoped fixture runs
-  the JAX package's ``hadd_many`` (add and sub), ``pmult_many``,
-  ``hmult_many``, ``square_many`` and ``rescale_many`` on both CKKS engines;
-  the port repeats each on the same seeds.
-* Against recorded digests (no JAX): the mixed wave of
+* Against recorded digests (no JAX): the port's ``hadd_many`` (add and
+  sub), ``pmult_many``, ``hmult_many``, ``square_many`` and ``rescale_many``
+  on both CKKS engines, against the JAX package's outputs on the same seeds
+  (``batched_ops``, recorded by ``tests/make_torch_serve_ref.py
+  --batched-ops``); the mixed wave of
   ``tests/torch_serve_wave.py`` served batched and sequentially on both
   engines — outputs, start order, key-store uploads and evictions, plan-cache
   accounting and a mid-wave snapshot — against the SHA-256 digests that
   ``tests/make_torch_serve_ref.py`` recorded from ``repro.serve`` into
-  ``tests/torch_serve_ref.json``.
+  ``tests/torch_serve_ref.json``; the op trace of each serving against
+  ``tests/torch_trace_ref.json``, ``pmult_many``'s one transform per
+  plaintext pinned as the one difference.
 * The port alone: staging and bit-flip faults under ``REPRO_GUARDS=full``,
   snapshot + journal recovery, tracing, the launcher, the hooks, and that no
   module of the port imports ``jax`` or ``repro``.
@@ -30,8 +32,9 @@ import pytest
 import torch
 
 import torch_serve_wave as W
+from make_torch_trace_ref import plus_plaintext_transforms, trace_record
 from repro_torch.core import ckks, const_cache, guards, keys as K
-from repro_torch.core import params as prm, poly as pl
+from repro_torch.core import params as prm, trace as TR
 from repro_torch.kernels import config
 from repro_torch.runtime import faults, tracing
 from repro_torch import serve as S
@@ -41,9 +44,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "tests", "torch_serve_ref.json")) as _f:
     REF = json.load(_f)
 CFG = REF["config"]
+with open(os.path.join(ROOT, "tests", "torch_trace_ref.json")) as _f:
+    TRACE_REF = json.load(_f)["traces"]
 ENGINES = ("fused", "eager")
 RUNS = tuple(W.RUNS)
-LIVE_OPS = ("hadd", "hsub", "pmult", "hmult", "square", "rescale")
 
 
 def params():
@@ -55,100 +59,29 @@ def keysets():
     return W.keysets_for(K, params(), CFG, device=CPU)
 
 
-# ------------------------------------------------------ batched ops, live JAX
-
-def _batch_inputs(enc, encrypt, coeff_poly, keys, p):
-    """Three ciphertext pairs and three plaintexts from fixed seeds."""
-    scale = float(p.q[-1])
-    rng = np.random.default_rng(7)
-    zs = [rng.normal(size=8) for _ in range(9)]
-    ct = lambda z, i: encrypt(enc.encode(z, scale, p.q, p.N), scale, keys.sk,
-                              p.q, p.N, np.random.default_rng(50 + i))
-    c1s = [ct(zs[i], i) for i in range(3)]
-    c2s = [ct(zs[3 + i], 3 + i) for i in range(3)]
-    pts = [coeff_poly(enc.encode(zs[6 + i], scale, p.q, p.N), p.q) for i in range(3)]
-    return c1s, c2s, pts, [scale] * 3
-
-
-def _batched_ops(C, c1s, c2s, pts, scales, keys, p):
-    """{op: [ciphertext]} of every batched op on one engine."""
-    prods = C.hmult_many(c1s, c2s, keys)
-    return {"hadd": C.hadd_many(c1s, c2s), "hsub": C.hadd_many(c1s, c2s, sub=True),
-            "pmult": C.pmult_many(c1s, pts, scales), "hmult": prods,
-            "square": C.square_many(c1s, keys),
-            "rescale": C.rescale_many(prods, p)}
-
-
-def _np(ct):
-    return {"a": np.asarray(ct.a.data, dtype=np.uint32),
-            "b": np.asarray(ct.b.data, dtype=np.uint32), "scale": ct.scale,
-            "basis": tuple(ct.basis), "domain": ct.a.domain}
-
+# ------------------------------------------------ batched ops vs digests
 
 @pytest.fixture(scope="module")
 def port_ops(keysets):
-    from repro_torch.core import encoding as enc
+    """The port's batched ops on both engines over ``W.batch_inputs``."""
     p, keys = params(), keysets["alice"]
-    inputs = _batch_inputs(
-        enc, lambda m, s, sk, b, N, rng: K.encrypt(m, s, sk, b, N, rng=rng, device=CPU),
-        lambda m, b: pl.RnsPoly(pl.to_tensor(m, CPU), b, pl.COEFF), keys, p)
+    inputs = W.batch_inputs(W.port_api(CPU), keys, p)
     out = {"inputs": inputs}
     for engine in ENGINES:
         with ckks.use_engine(engine):
-            out[engine] = _batched_ops(ckks, *inputs, keys, p)
+            out[engine] = W.batched_ops(ckks, *inputs, keys, p)
     return out
 
 
-@pytest.fixture(scope="module")
-def live_ref(keysets, port_ops):
-    """The JAX package's batched ops on both engines, as numpy, on the
-    port's keys and ciphertexts carried across as u32 arrays (the port's
-    keygen and encrypt give the JAX package's bytes: test_torch_ckks.py, and
-    the served waves below) — JAX's own keygen and encryption would add a
-    third to this fixture's time.  Almost all of the rest is XLA compiling
-    each eager op once per shape; the fixture compiles them with XLA's
-    optimizations off (integer results are the same) and restores the flag."""
-    jax = pytest.importorskip("jax")
-    saved = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    try:
-        return _live_ref(keysets, port_ops)
-    finally:
-        jax.config.update("jax_disable_most_optimizations", saved)
-
-
-def _live_ref(keysets, port_ops):
-    import jax.numpy as jnp
-
-    from repro.core import ckks as jckks, keys as jK, params as jprm, poly as jpl
-    p = jprm.make_params(N=CFG["N"], L=CFG["L"], K=CFG["K"], dnum=CFG["dnum"])
-    poly = lambda x: jpl.RnsPoly(jnp.asarray(pl.to_numpy(x.data)), x.basis, x.domain)
-    ek = lambda e: jK.EvalKey(seed=e.seed, b=[poly(b) for b in e.b], basis=e.basis)
-    ks = keysets["alice"]
-    keys = jK.KeySet(params=p, sk=jK.SecretKey(ks.sk.s_small.copy()),
-                     relin=ek(ks.relin),
-                     galois={g: ek(e) for g, e in ks.galois.items()})
-    c1s, c2s, pts, scales = port_ops["inputs"]
-    ct = lambda c: jK.Ciphertext(poly(c.a), poly(c.b), c.scale)
-    inputs = ([ct(c) for c in c1s], [ct(c) for c in c2s], [poly(x) for x in pts],
-              scales)
-    out = {}
-    for engine in ENGINES:
-        with jckks.use_engine(engine):
-            ops = _batched_ops(jckks, *inputs, keys, p)
-        out[engine] = {op: [_np(c) for c in cts] for op, cts in ops.items()}
-    return out
-
-
-@pytest.mark.parametrize("op", LIVE_OPS)
+@pytest.mark.parametrize("op", W.BATCHED_OPS)
 @pytest.mark.parametrize("engine", ENGINES)
-def test_batched_op_matches_reference(live_ref, port_ops, engine, op):
-    for got, want in zip(port_ops[engine][op], live_ref[engine][op], strict=True):
-        assert got.a.data.dtype == torch.int32
-        assert (got.scale, got.basis, got.a.domain) == \
-            (want["scale"], want["basis"], want["domain"])
-        np.testing.assert_array_equal(pl.to_numpy(got.a.data), want["a"])
-        np.testing.assert_array_equal(pl.to_numpy(got.b.data), want["b"])
+def test_batched_op_matches_reference(port_ops, engine, op):
+    """Each output's digest, scale, basis and domain equal the JAX package's
+    (``batched_ops`` of tests/torch_serve_ref.json)."""
+    got = port_ops[engine][op]
+    assert all(c.a.data.dtype == torch.int32 for c in got)
+    assert [W.ct_record(W.port_api(CPU), c) for c in got] == \
+        REF["batched_ops"][engine][op]
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -167,15 +100,19 @@ def test_hmult_many_equals_per_ciphertext_hmult(keysets, port_ops, engine):
 
 @pytest.fixture(scope="module")
 def waves(keysets):
-    """{(engine, run): record} of the port's served waves on the CPU."""
+    """{(engine, run): record} of the port's served waves on the CPU, each
+    with the op trace of its serving under "trace"."""
     api, p = W.port_api(CPU), params()
     out = {}
     for engine in ENGINES:
         with ckks.use_engine(engine):
             for run in RUNS:
+                t = TR.OpTrace()
                 with tempfile.TemporaryDirectory() as tmp:
-                    out[engine, run], _, _ = W.serve(api, p, keysets, run, CFG,
-                                                     snapshot_dir=tmp)
+                    out[engine, run], _, _ = W.serve(
+                        api, p, keysets, run, CFG, snapshot_dir=tmp,
+                        during=lambda: TR.trace_ops(t))
+                out[engine, run]["trace"] = t
     return out
 
 
@@ -200,6 +137,25 @@ def test_serve_accounting_matches_reference(waves, engine, run):
 def test_snapshot_matches_reference(waves, engine, run):
     """The whole snapshot state, its ciphertext payloads included."""
     assert waves[engine, run]["snapshot"] == REF["engines"][engine][run]["snapshot"]
+
+
+@pytest.mark.parametrize("run", RUNS)
+@pytest.mark.parametrize("engine", ENGINES)
+def test_served_wave_trace_matches_reference(waves, engine, run):
+    """The serving's op trace (counts, calls, HE ops) equals the JAX
+    package's (tests/torch_trace_ref.json) but for one pinned difference:
+    ``pmult_many`` transforms its plaintexts in one launch, where the
+    reference transforms each twice — the three program-B plaintexts at
+    ℓ = L − 1, in one call batched and one call each sequentially."""
+    want = TRACE_REF[f"serve_{run}"][engine]
+    n_b = CFG["requests"] // 2
+    calls = [[CFG["L"] - 1, CFG["N"], n_b]] if run == "batched" else \
+        [[CFG["L"] - 1, CFG["N"], 1]] * n_b
+    assert want["pmult_many"] == calls
+    t = waves[engine, run]["trace"]
+    got = plus_plaintext_transforms(trace_record(t), calls)
+    assert got == {k: want[k] for k in ("counts", "calls", "he_ops")}
+    assert not t.launches
 
 
 @pytest.mark.parametrize("engine", ENGINES)

@@ -177,6 +177,41 @@ def serve(api: Api, p, keysets: dict, run: str, cfg: dict = CONFIG,
     return record, reqs, eng
 
 
+#: the batched ops recorded op by op, each over three ciphertext pairs
+BATCHED_OPS = ("hadd", "hsub", "pmult", "hmult", "square", "rescale")
+
+
+def batch_inputs(api: Api, keys, p):
+    """Three ciphertext pairs and three plaintexts (full basis) from fixed
+    seeds, for the batched ops: (c1s, c2s, pts, scales)."""
+    scale = float(p.q[-1])
+    rng = np.random.default_rng(7)
+    zs = [rng.normal(size=8) for _ in range(9)]
+    ct = lambda z, i: api.encrypt(api.encode(z, scale, p.q, p.N), scale, keys.sk,
+                                  p.q, p.N, np.random.default_rng(50 + i))
+    c1s = [ct(zs[i], i) for i in range(3)]
+    c2s = [ct(zs[3 + i], 3 + i) for i in range(3)]
+    pts = [api.coeff_poly(api.encode(zs[6 + i], scale, p.q, p.N), p.q)
+           for i in range(3)]
+    return c1s, c2s, pts, [scale] * 3
+
+
+def batched_ops(C, c1s, c2s, pts, scales, keys, p) -> dict:
+    """{op: [ciphertext]} of every batched op of ``C`` (a ckks module) on
+    the current engine."""
+    prods = C.hmult_many(c1s, c2s, keys)
+    return {"hadd": C.hadd_many(c1s, c2s), "hsub": C.hadd_many(c1s, c2s, sub=True),
+            "pmult": C.pmult_many(c1s, pts, scales), "hmult": prods,
+            "square": C.square_many(c1s, keys),
+            "rescale": C.rescale_many(prods, p)}
+
+
+def ct_record(api: Api, ct) -> dict:
+    """A ciphertext's digest with its scale, basis and domain."""
+    return {"sha256": ct_digest(api, ct), "scale": float(ct.scale),
+            "basis": [int(q) for q in ct.basis], "domain": ct.a.domain}
+
+
 def port_api(device) -> Api:
     """The port's side of the wave, its tensors on ``device``."""
     from repro_torch import serve as S
