@@ -124,17 +124,43 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               64 cores: model ms for the paper's ASIC package, not H100
               times, and package mm²) equal to the JAX package's values
               recorded in ``tests/torch_trace_ref.json``;
-12. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
+12. dist_cross — the distributed engine (``repro_torch.core.distributed``: a
+              mesh of logical shards on one device) at N = 256, L = 8, K = 2,
+              dnum = 4 on every cluster map of 1, 2, 4, 8 and 16 shards, on
+              the CPU (plain versions) and on the card (kernels): each
+              primitive's bytes equal on both and to the permuted
+              single-device result, the mesh's executed collectives and
+              ``count_collective`` equal to ``predict_collectives``; the
+              pipeline hmult → rescale → hrot_hoisted([1, 2]) equal on both
+              and to the JAX package's single-device eager digests in
+              ``tests/torch_dist_ref.json``; local, ARK and limb duplication
+              each run;
+13. distributed — the engine at the paper's widths on the pipeline phase's
+              keys and ciphertexts, under 4x4-BK-2x2 (the paper's default
+              16-core block) and 4x4-coef-scatter: the primitives at ℓ = 48
+              against the single-device kernels (the NTT's one all_to_all,
+              the AutoU's all_gather, limb duplication on the ModUp shape,
+              ARK on 48 → 12, local), then hmult → rescale →
+              hrot_hoisted([1, 4]): bytes equal to the single-device eager
+              engine's on the card, decode error < 1e-2, executed
+              collectives equal to the prediction, no single-device NTT or
+              permutation kernel and no plain version on card data; warm ms
+              per op (median of 3) beside the single-device eager engine's,
+              launches per op and kernel, collectives with their bytes per op
+              beside ``cost_model.nop_traffic``; then the four NTT phase
+              kernels, the AutoU block gather and BConvU at the 4x4-BK-2x2
+              shard shapes against their plain versions, timed;
+14. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               (R × cluster size) and the single permutation at N = 2¹⁶,
               ℓ = 48, its cache in a temporary directory;
-13. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
+15. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
               (every kernel against its plain version at small shapes and at
               the bootstrap's N = 2¹⁴ shapes, the NTT at every cluster size of
               every split it is tested at);
 
 then the kernel table as one JSON line (launches: the pipeline's pass, one
-warm bootstrap, one warm served wave and the analytics phase's traced ops
-and wave, and each path's share), and the
+warm bootstrap, one warm served wave, the analytics phase's traced ops and
+wave and one distributed pass per map, and each path's share), and the
 result line
 ``{"ok": true, "device": {...}}`` last.  Any failure raises: the script exits
 non-zero and prints no result.  It imports nothing of JAX.
@@ -143,6 +169,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import hashlib
 import json
 import math
@@ -284,6 +311,36 @@ def phase_build():
         raise AssertionError(f"no ptxas report for {missing}")
 
 
+def kernel_case(rows, kernel, name, family, source, replaces, cuda_fn, plain_fn,
+                args, nbytes, ops, library=None, extra=None, info=None):
+    """Run a kernel's wrapper and its plain version on ``args`` on the card:
+    fail unless they are bit-equal (and ``extra``'s checks hold), then time
+    both by graph replays, with the library call where there is one, and
+    append the row (kernel, route, source, replaces, ms, plain_ms, bound)."""
+    import torch
+    got = cuda_fn(*args)
+    want = plain_fn(*args)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    checks = extra(got) if extra else {}
+    equal = equal and all(checks.values())
+    b_ms, b_by = bound_ms(nbytes, ops)
+    row = {"kernel": kernel, "name": name, "family": family, "route": "cuda", "source": source,
+           "replaces": replaces, "shape": list(args[0].shape),
+           "equal": equal, "max_abs_err": err, **checks,
+           "ms": gpu_ms(lambda: cuda_fn(*args)),
+           "plain_ms": gpu_ms(lambda: plain_fn(*args), reps=2, rounds=3),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": gpu_ms(lambda: library(*args)) if library else None,
+           **(info or {})}
+    emit({"phase": "kernel", **row})
+    if not equal:
+        raise AssertionError(f"{name}: kernel differs from its plain version "
+                             f"(max |diff| {err}, checks {checks})")
+    rows.append(row)
+
+
 def phase_kernels(params):
     """Each kernel vs its plain version at the paper_full pipeline shapes."""
     import numpy as np
@@ -301,31 +358,7 @@ def phase_kernels(params):
     boot = prm.make_params(**BOOT_PARAMS)
     q48 = params.q[:L]
     rows = []
-
-    def case(kernel, name, family, source, replaces, cuda_fn, plain_fn, args,
-             nbytes, ops, library=None, extra=None, info=None):
-        got = cuda_fn(*args)
-        want = plain_fn(*args)
-        torch.cuda.synchronize()
-        equal = torch.equal(got, want)
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        checks = extra(got) if extra else {}
-        equal = equal and all(checks.values())
-        b_ms, b_by = bound_ms(nbytes, ops)
-        row = {"kernel": kernel, "name": name, "family": family, "route": "cuda", "source": source,
-               "replaces": replaces, "shape": list(args[0].shape),
-               "equal": equal, "max_abs_err": err, **checks,
-               "ms": gpu_ms(lambda: cuda_fn(*args)),
-               "plain_ms": gpu_ms(lambda: plain_fn(*args), reps=2, rounds=3),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": gpu_ms(lambda: library(*args)) if library else None,
-               **(info or {})}
-        emit({"phase": "kernel", **row})
-        if not equal:
-            raise AssertionError(f"{name}: kernel differs from its plain version "
-                                 f"(max |diff| {err}, checks {checks})")
-        rows.append(row)
-
+    case = functools.partial(kernel_case, rows)
     src = "src/repro_torch/kernels/csrc/"
     # EFU at the shapes the pipeline gives it, the views read in place:
     # HMult's stacked mul (2, ℓ, N), compound mac (ℓ, N) and result add
@@ -616,18 +649,24 @@ def _sync_for(device):
 def plain_calls_on_card():
     """Count the calls of the kernels' plain versions on CUDA data while the
     block runs (the main path, on the kernel BConv engine, must make none):
-    the fused plain transform, the plain four-step, the plain single, eager
-    and multi-permutation gathers, the plain AutoU∘KS, the plain BConv table
+    the fused plain transform, the plain four-step and its distributed
+    phases, the plain single, eager, multi-permutation and block gathers,
+    the plain AutoU∘KS, the plain BConv table
     product, the plain ring ops of modmath (addmod, submod, negmod, mulmod,
     mulmod_shoup) and the EFU's plain version."""
     from repro_torch.core import modmath as mm, ntt as nttm
     from repro_torch.kernels.automorphism import ops as auto_ops
     from repro_torch.kernels.bconv import ops as bconv_ops
     from repro_torch.kernels.eltwise import ops as elt_ops
+    from repro_torch.kernels.ntt import ops as ntt_ops
     calls = collections.Counter()
     saved = [(mod, name, getattr(mod, name)) for mod, name in (
         (nttm, "ntt"), (nttm, "intt"), (nttm, "four_step_ntt"),
-        (nttm, "four_step_intt"), (auto_ops, "automorphism_plain"),
+        (nttm, "four_step_intt"), (nttm, "four_step_col_fwd"),
+        (nttm, "four_step_row_fwd"), (nttm, "four_step_row_inv"),
+        (nttm, "four_step_col_inv"), (nttm, "_cyclic_dft"),
+        (ntt_ops, "ntt_phase_plain"), (auto_ops, "automorphism_blocks_plain"),
+        (auto_ops, "automorphism_plain"),
         (auto_ops, "automorphism_eager_plain"),
         (auto_ops, "automorphism_multi_plain"), (auto_ops, "auto_ks_plain"),
         (bconv_ops, "bconv_matmul_plain"), (mm, "addmod"), (mm, "submod"),
@@ -1415,6 +1454,315 @@ def phase_analytics(params, pipeline, serve_trace):
     return dict(kernels)
 
 
+DIST_REF = ROOT / "tests" / "torch_dist_ref.json"
+# the paper's 16-core package under its default block (§VI-F,
+# mapping.default_block(4, 4)) and under coefficient scattering
+DIST_MAPS = ("4x4-BK-2x2", "4x4-coef-scatter")
+# kernels every distributed pass must launch (over both maps)
+DIST_PATH_KERNELS = ("efu", "bconvu", "ntt_fwd_col", "ntt_fwd_row",
+                     "ntt_inv_row", "ntt_inv_col", "automorphism_blocks")
+# single-device kernels that must not launch under a scope
+SINGLE_DEVICE_ONLY = ("ntt_fwd", "ntt_inv", "automorphism", "auto_ks",
+                      "automorphism_multi", "automorphism_eager")
+
+
+def phase_dist_cross():
+    """The distributed engine at N = 256 on every map of 1, 2, 4, 8 and 16
+    logical shards, on the CPU (plain versions) and on the card (kernels):
+    each primitive's bytes equal on both devices and to the permuted
+    single-device result, both collective tallies equal to the prediction;
+    the pipeline's digests equal on both devices and to the JAX package's
+    single-device eager digests in ``tests/torch_dist_ref.json``."""
+    import numpy as np
+    from repro_torch.core import _dist_selftest as S, distributed as D, params as prm
+    t0 = time.perf_counter()
+    want = json.loads(DIST_REF.read_text())["N"]["256"]["engines"]["eager"]
+    p = prm.make_params(N=256, L=8, K=2, dnum=4)
+    maps = [cm for n in (1, 2, 4, 8, 16) for cm in S._maps_for(n)]
+    inputs = {dev: S._make_inputs(p, device=dev) for dev in ("cpu", DEVICE)}
+    results, methods = {}, collections.Counter()
+    with plain_calls_on_card() as plain:
+        for cm in maps:
+            runs = {}
+            for dev in ("cpu", DEVICE):
+                with D.dist_scope(cm, device=dev) as ctx:
+                    prims = S._prim_checks(ctx, p, np.random.default_rng(11), dev)
+                runs[dev] = (prims, S._pipeline_run(cm, p, *inputs[dev], dev))
+            (pc, qc), (pg, qg) = runs["cpu"], runs[DEVICE]
+            methods.update(v["method"] for v in pg.values() if "method" in v)
+            results[cm.name] = {
+                "prims_equal": {k: pc[k]["digest"] == pg[k]["digest"] for k in pc},
+                "prims_exact": all(v["exact"] for v in pg.values()),
+                "counts_match": all(v["counts_match"] for v in pg.values()),
+                "pipeline_equal": qc == qg, "pipeline_equals_jax": qg["digests"] == want,
+                "collectives": qg["executed"], "predicted": qg["collectives"],
+                "bytes": qg["bytes"]}
+    emit({"phase": "dist_cross", "N": p.N, "L": p.L, "maps": results,
+          "bconv_methods": dict(methods), "plain_calls_on_card": dict(plain),
+          "seconds": time.perf_counter() - t0})
+    if plain:
+        raise AssertionError(f"plain versions ran on card data: {dict(plain)}")
+    bad = {name: r for name, r in results.items()
+           if not (all(r["prims_equal"].values()) and r["prims_exact"]
+                   and r["counts_match"] and r["pipeline_equal"]
+                   and r["pipeline_equals_jax"]
+                   and r["collectives"] == r["predicted"])}
+    if bad:
+        raise AssertionError(f"dist_cross: maps differ: {bad}")
+    if set(methods) != {"local", "ark", "limbdup"}:
+        raise AssertionError(f"dist_cross: BConv methods run {dict(methods)}")
+
+
+def _dist_prims(ctx, params, gen):
+    """The primitives at ℓ = 48 under the active scope, each against the
+    single-device kernels' result permuted into the scope's layout, with
+    the mesh's executed collectives, their bytes and the prediction."""
+    import torch
+    from repro_torch.core import bconv as bc, const_cache, cost_model as cost
+    from repro_torch.core import distributed as D, poly as pl
+    from repro_torch.kernels.automorphism import ops as auto_ops
+    from repro_torch.kernels.bconv import ops as bconv_ops
+    from repro_torch.kernels.ntt import ops as ntt_ops
+    from repro_torch.kernels import config
+    N, L, cm = params.N, params.L, ctx.cm
+    q48 = params.q[:L]
+    dev = torch.device(DEVICE)
+    R = ctx.submodules(N)
+    cperm, _ = D._device_layout(N, R, ctx.cs, pl.COEFF, dev)
+    nperm, _ = D._device_layout(N, R, ctx.cs, pl.NTT, dev)
+    out = {}
+
+    def run(tag, fn, want, op, **kw):
+        before = config.collective_counts()
+        snap = ctx.mesh.snapshot()
+        got = fn()
+        executed, nbytes = ctx.mesh.since(snap)
+        pred = cost.predict_collectives(op, cm, **kw)
+        out[tag] = {"equal": bool(torch.equal(got, want)), "executed": executed,
+                    "bytes": nbytes, "predicted": pred,
+                    "counted": config.collectives_since(before)}
+        if op == "bconv":
+            out[tag]["method"] = cost.bconv_method(cm, kw["n_in"], kw["n_out"], N=N)
+        return got
+
+    x = residues(q48, (), N, gen)
+    want_ntt = ntt_ops.ntt_fwd(x, q48)
+    sp = D.shard_poly(pl.RnsPoly(x, q48, pl.COEFF), ctx)
+    sn = run("ntt", lambda: sp.to_ntt().data, want_ntt.index_select(-1, nperm), "ntt")
+    run("intt", lambda: pl.RnsPoly(sn, q48, pl.NTT).to_coeff().data,
+        x.index_select(-1, cperm), "intt")
+    for tag, src, dst in (("bconv_modup_12_to_48", q48[:12], q48[12:] + params.p),
+                          ("bconv_48_to_12", q48, params.p)):
+        xs = residues(src, (), N, gen)
+        want = bconv_ops.bconv(xs, src, dst).index_select(-1, cperm)
+        xd = D.shard_poly(pl.RnsPoly(xs, src, pl.COEFF), ctx).data
+        run(tag, lambda: bc.bconv_raw(xd, src, dst), want, "bconv",
+            n_in=len(src), n_out=len(dst), N=N)
+    g = pl.galois_elt(1, N)
+    want = auto_ops.automorphism(want_ntt, const_cache.device_galois_perm(N, g, dev))
+    run("auto", lambda: pl.RnsPoly(sn, q48, pl.NTT).automorphism_by_gelt(g).data,
+        want.index_select(-1, nperm), "auto")
+    return out
+
+
+def _dist_kernel_rows(params, gen):
+    """The distributed path's kernels at the 4x4-BK-2x2 shard shapes of
+    hmult's (2, 48, N) operands against their plain versions: the four NTT
+    phases on (4, 4, 2, 12, N/4) blocks, the AutoU block gather of the
+    all-gathered (4, 4, 2, 12, N) rows, BConvU under limb duplication (a
+    cluster's launch: ModUp 12 → its 12 of 48 primes at n = N/4) and under
+    ARK (48 → 12 at n = N/16 on every block)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import const_cache, distributed as D, poly as pl
+    from repro_torch.core.mapping import ClusterMap
+    from repro_torch.kernels.automorphism import ops as auto_ops
+    from repro_torch.kernels.bconv import ops as bconv_ops
+    from repro_torch.kernels.ntt import ops as ntt_ops
+    N, L = params.N, params.L
+    q48 = params.q[:L]
+    dev = torch.device(DEVICE)
+    ctx = D.DistContext(ClusterMap.parse("4x4-BK-2x2"), D.Mesh(4, 4, dev))
+    R = ctx.submodules(N)
+    C = N // R
+    fc = const_cache.device_four_step_consts(q48, N, R, dev)
+    rows = []
+    case = functools.partial(kernel_case, rows)
+    src = "src/repro_torch/kernels/csrc/"
+    words = 2 * L * N                         # one (2, 48, N) operand
+    x = residues(q48, (2,), N, gen)
+    blocks = ctx.mesh.place(x, True)          # (4, 4, 2, 12, N/4) strided view
+    contiguous = residues(q48, (2,), N, gen).reshape(2, 4, 12, 4, N // 4) \
+        .permute(1, 3, 0, 2, 4).contiguous()  # an exchange's output buffer
+    # bytes: data in and out once, the phase's tables (the twiddle pair for
+    # the column phases, the stage pair for the row phases); operations: 7
+    # per butterfly (Shoup product, add, subtract, two folds) and 5 per
+    # twiddle or scaling product
+    for phase, operand in (("fwd_col", blocks), ("fwd_row", contiguous),
+                           ("inv_row", contiguous), ("inv_col", contiguous)):
+        col = phase.endswith("col")
+        tables = 2 * L * N if col else 2 * L * (C - 1)
+        stages = math.log2(R if col else C)
+        scalings = 2 if phase == "inv_col" else 1
+        case(f"ntt_{phase}", f"ntt_{phase}_4x4_2x12", "ntt", src + "ntt.cu",
+             "src/repro/kernels/ntt/kernel.py:156",
+             lambda a, ph=phase: ntt_ops.ntt_phase_cuda(a, fc, ph, 12),
+             lambda a, ph=phase: ntt_ops.ntt_phase_plain(a, fc, ph, 12), [operand],
+             nbytes=(2 * words + tables) * 4 + L * 16,
+             ops=words * (3.5 * stages + 5 * scalings))
+    table = D._galois_layout_table(N, R, pl.galois_elt(1, N), dev)
+    full = residues(q48, (2,), N, gen).reshape(2, 4, 12, N).permute(1, 0, 2, 3) \
+        .unsqueeze(1).expand(4, 4, 2, 12, N).contiguous()
+    case("automorphism_blocks", "automorphism_blocks_4x4_2x12", "automorphism",
+         src + "automorphism.cu", "src/repro/kernels/automorphism/kernel.py:82",
+         auto_ops.automorphism_blocks_cuda, auto_ops.automorphism_blocks_plain,
+         [full, table], nbytes=2 * words * 4 + N * 8, ops=0,
+         library=auto_ops.automorphism_blocks_plain)
+    for name, s_b, d_b, lead, n in (
+            ("bconv_limbdup_cluster_4x1x12_to_12", q48[:12], (q48[12:] + params.p)[:12],
+             (4, 1), N // 4),
+            ("bconv_ark_4x4x2x48_to_12", q48, params.p, (4, 4, 2), N // 16)):
+        xs = residues(s_b, lead, n, gen)
+        B, ell, k = int(np.prod(lead)), len(s_b), len(d_b)
+        case("bconvu", name, "bconv", src + "bconv.cu",
+             "src/repro/kernels/bconv/kernel.py:59",
+             lambda a, s_=s_b, d_=d_b: bconv_ops.bconv_cuda(a, s_, d_),
+             lambda a, s_=s_b, d_=d_b: bconv_ops.bconv_plain(a, s_, d_), [xs],
+             nbytes=(B * ell * n + B * k * n + k * ell) * 4 + ell * 20 + k * 16,
+             ops=2 * B * k * ell * n)
+    return rows
+
+
+def _dist_ops(ct1, ct2, keys, params, sync, mesh=None):
+    """hmult → rescale → hrot_hoisted([1, 4]) once, each op timed with its
+    launches (counts reset before, read after), its op trace and, given the
+    scope's mesh, the collectives it executed with their bytes."""
+    from repro_torch.core import ckks, trace as TR
+    out, ms, launches, traces, moved = {}, {}, {}, {}, {}
+    steps = (("hmult", lambda: ckks.hmult(ct1, ct2, keys)),
+             ("rescale", lambda: ckks.rescale(out["hmult"], params)),
+             ("hoisted_rotations", lambda: ckks.hrot_hoisted(out["rescale"], [1, 4],
+                                                             keys)))
+    for name, fn in steps:
+        snap = mesh.snapshot() if mesh else None
+        with TR.trace_ops() as traces[name]:
+            out[name], ms[name], launches[name] = _timed_op(fn, sync)
+        if mesh:
+            moved[name] = mesh.since(snap)
+    return out, ms, launches, traces, moved
+
+
+def phase_distributed(params, pipeline):
+    """The distributed engine at the paper's widths on one card: under
+    4x4-BK-2x2 and 4x4-coef-scatter, the primitives at ℓ = 48 against the
+    single-device kernels, then hmult → rescale → hrot_hoisted([1, 4]) on the
+    pipeline phase's keys and ciphertexts: bytes equal to the single-device
+    eager engine's on the card, decode error < 1e-2, executed collectives
+    equal to the prediction; warm ms per op (median of 3) beside the
+    single-device eager engine's, launches per op and kernel, collectives and
+    their bytes per op beside ``cost_model.nop_traffic``; no plain version on
+    card data.  Returns (per-kernel launches of one pass per map, kernel
+    rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ckks, cost_model as cost, distributed as D
+    from repro_torch.core import encoding as enc, keys as K
+    from repro_torch.core.mapping import ClusterMap
+    from repro_torch.kernels import config
+    t0 = time.perf_counter()
+    sync = _sync_for(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    keys, (c1, c2) = pipeline["keys"], pipeline["inputs"]
+    n = 16
+    prod = np.concatenate([_messages(n, 1) * _messages(n, 2),
+                           np.zeros(params.slots - n)])
+    want = {"rescale": prod[:n], "rot1": np.roll(prod, -1)[:n],
+            "rot4": np.roll(prod, -4)[:n]}
+    with ckks.use_engine("eager"):
+        ref, _, ref_launches, _, _ = _dist_ops(c1, c2, keys, params, sync)
+        ref_warm = [_dist_ops(c1, c2, keys, params, sync)[1] for _ in range(3)]
+    ref_ms = {op: statistics.median(w[op] for w in ref_warm) for op in ref_warm[0]}
+    maps, total = {}, collections.Counter()
+    with plain_calls_on_card() as plain:
+        for name in DIST_MAPS:
+            cm = ClusterMap.parse(name)
+            with D.dist_scope(cm, device=DEVICE) as ctx:
+                prims = _dist_prims(ctx, params, gen)
+                dk = D.shard_keyset(keys, ctx)
+                d1, d2 = D.shard_ciphertext(c1, ctx), D.shard_ciphertext(c2, ctx)
+                before = config.collective_counts()
+                snap = ctx.mesh.snapshot()
+                out, cold_ms, launches, traces, moved = _dist_ops(
+                    d1, d2, dk, params, sync, ctx.mesh)
+                executed, nbytes = ctx.mesh.since(snap)
+                counted = config.collectives_since(before)
+                per_op = {op: {"collectives": ex, "bytes": by,
+                               "nop_traffic_model": cost.nop_traffic(traces[op], cm)}
+                          for op, (ex, by) in moved.items()}
+                warm = [_dist_ops(d1, d2, dk, params, sync)[1] for _ in range(3)]
+                got = {"hmult": D.unshard_ciphertext(out["hmult"], ctx),
+                       "rescale": D.unshard_ciphertext(out["rescale"], ctx),
+                       "rot1": D.unshard_ciphertext(out["hoisted_rotations"][0], ctx),
+                       "rot4": D.unshard_ciphertext(out["hoisted_rotations"][1], ctx)}
+            refs = {"hmult": ref["hmult"], "rescale": ref["rescale"],
+                    "rot1": ref["hoisted_rotations"][0],
+                    "rot4": ref["hoisted_rotations"][1]}
+            equal = {k: bool(torch.equal(got[k].a.data, refs[k].a.data)
+                             and torch.equal(got[k].b.data, refs[k].b.data))
+                     for k in got}
+            errors = {}
+            for stage, z in want.items():
+                ct = got[stage]
+                dec = enc.decode(K.decrypt(ct, keys.sk), ct.scale, ct.basis, params.N, n)
+                errors[stage] = float(np.max(np.abs(dec - z)))
+            for counts in launches.values():
+                total.update(counts)
+            maps[name] = {
+                "cs": cm.block_size, "lc": cm.n_limb_clusters, "prims": prims,
+                "equal_to_single_device_eager": equal, "max_error": errors,
+                "cold_ms": cold_ms,
+                "warm_ms": {op: statistics.median(w[op] for w in warm) for op in warm[0]},
+                "launches": launches, "collectives_executed": executed,
+                "collectives_counted": counted, "bytes": nbytes, "per_op": per_op}
+    rows = _dist_kernel_rows(params, gen)
+    emit({"phase": "distributed", "params": "paper_full", "N": params.N,
+          "L": params.L, "K": params.K, "dnum": params.dnum, "maps": maps,
+          "single_device_eager_warm_ms": ref_ms,
+          "single_device_eager_launches": ref_launches,
+          "plain_calls_on_card": dict(plain), "seconds": time.perf_counter() - t0})
+    if plain:
+        raise AssertionError(f"plain versions ran on card data: {dict(plain)}")
+    methods = set()
+    for name, m in maps.items():
+        for tag, pr in m["prims"].items():
+            methods.add(pr.get("method"))
+            if not pr["equal"] or pr["executed"] != pr["predicted"] \
+                    or pr["counted"] != pr["predicted"]:
+                raise AssertionError(f"{name}: primitive {tag} failed: {pr}")
+        if not all(m["equal_to_single_device_eager"].values()):
+            raise AssertionError(f"{name}: sharded pipeline differs from the "
+                                 f"single-device eager engine: "
+                                 f"{m['equal_to_single_device_eager']}")
+        if not all(e < 1e-2 for e in m["max_error"].values()):
+            raise AssertionError(f"{name}: decode error ≥ 1e-2: {m['max_error']}")
+        if m["collectives_executed"] != m["collectives_counted"]:
+            raise AssertionError(f"{name}: executed collectives "
+                                 f"{m['collectives_executed']} against the "
+                                 f"prediction {m['collectives_counted']}")
+        for op, counts in m["launches"].items():
+            bypass = [k for k in SINGLE_DEVICE_ONLY if counts.get(k)]
+            if bypass:
+                raise AssertionError(f"{name} {op}: single-device kernels {bypass} "
+                                     "launched under the scope")
+    if not {"local", "ark", "limbdup"} <= methods:
+        raise AssertionError(f"distributed: BConv methods run {methods}")
+    missing = [k for k in DIST_PATH_KERNELS if total[k] <= 0]
+    if missing:
+        raise AssertionError(f"distributed: kernels {missing} never launched: "
+                             f"{dict(total)}")
+    return dict(total), rows
+
+
 def phase_autotune(params, cache_file):
     """A quick sweep of the NTT's and the single permutation's knobs through
     the autotuner's command-line entry point."""
@@ -1478,6 +1826,14 @@ DESIGN = {
                "one Barrett per output",
 }
 DESIGN["ntt_inv"] = DESIGN["ntt_fwd"]
+for _phase in ("fwd_col", "fwd_row", "inv_row", "inv_col"):
+    DESIGN[f"ntt_{_phase}"] = (
+        "one phase of the distributed four-step on every block of the mesh in "
+        "one launch: a CTA per tile of whole columns or rows of a block in "
+        "shared memory, blocks read through their strides, canonical out")
+DESIGN["automorphism_blocks"] = ("perm_rows_kernel with an output row of N/cs "
+                                 "words: each block gathers its slice of the "
+                                 "outputs from its all-gathered row")
 DESIGN["automorphism_eager"] = DESIGN["automorphism_multi"]
 
 
@@ -1492,7 +1848,8 @@ def kernel_table(rows, paths):
         by_path = {path: counts.get(kernel, 0) for path, counts in paths.items()}
         table.append({"name": kernel, "launches": sum(by_path.values()),
                       "launches_by_path": by_path,
-                      "on_main_path": kernel in FUSED_PATH_KERNELS + EAGER_PATH_KERNELS,
+                      "on_main_path": kernel in (FUSED_PATH_KERNELS + EAGER_PATH_KERNELS
+                                                 + DIST_PATH_KERNELS),
                       **({"design": DESIGN[kernel]} if kernel in DESIGN else {}),
                       **{k: main_case[k] for k in (
                           "route", "source", "replaces", "max_abs_err", "ms",
@@ -1529,13 +1886,17 @@ def main() -> int:
         phase_serve_cross()
         serve_launches, serve_trace = phase_serve()
         analytics_launches = phase_analytics(paper, pipeline, serve_trace)
+        phase_dist_cross()
+        dist_launches, dist_rows = phase_distributed(paper, pipeline)
+        rows += dist_rows
         del pipeline
         phase_autotune(paper, cache_file)
         autotune.set_cache_path(None)
     phase_card_tests()
     table = kernel_table(rows, {"pipeline": launches, "bootstrap": boot_launches,
                                 "serve": serve_launches,
-                                "analytics": analytics_launches})
+                                "analytics": analytics_launches,
+                                "distributed": dist_launches})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

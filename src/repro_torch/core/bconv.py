@@ -69,7 +69,13 @@ def _record(x, src, dst):
 
 def bconv_raw(x: torch.Tensor, src: tuple[int, ...],
               dst: tuple[int, ...]) -> torch.Tensor:
-    """(…, ℓ, N) coeff-domain residues in ``src`` → (…, K, N) in ``dst``."""
+    """(…, ℓ, N) coeff-domain residues in ``src`` → (…, K, N) in ``dst``.
+    Under an active ``dist_scope`` the mesh-mapped BConv (either engine)."""
+    from . import distributed as dist  # lazy: distributed imports this module
+    ctx = dist.dist_active()
+    if ctx is not None:
+        _record(x, src, dst)
+        return dist.sharded_bconv(ctx, x, tuple(src), tuple(dst))
     if _engine == "eager":
         return bconv_raw_eager(x, src, dst)
     _record(x, src, dst)

@@ -76,7 +76,14 @@ class use_engine:
 
 
 def _use_fused() -> bool:
-    return _engine == "fused"
+    if _engine != "fused":
+        return False
+    # under an active dist_scope the eager decomposition is the distributed
+    # path: every primitive it touches (RnsPoly NTT/automorphism, bconv_raw)
+    # dispatches to the sharded engine, whereas the fused kernels assume
+    # single-device natural-order operands.
+    from . import distributed as dist
+    return dist.dist_active() is None
 
 
 def _evk_at_level(evk: EvalKey, params: CkksParams,

@@ -55,15 +55,22 @@ class EvalKey:
     basis: tuple[int, ...]           # Q_L ∪ P
     _a_cache: list[pl.RnsPoly] | None = None
     _level_cache: dict | None = None
+    # index permutation of a sharded key's coefficients (the distributed
+    # engine's NTT layout, core.distributed.shard_eval_key), applied to the
+    # a-halves as they are regenerated; None: natural order
+    layout: torch.Tensor | None = None
 
     def a(self) -> list[pl.RnsPoly]:
         """Regenerate the a-halves from the seed (PRNG evk, §V-B), on the
-        device of the b-halves."""
+        device of the b-halves, in the key's layout."""
         if self._a_cache is None:
             rng = np.random.default_rng(self.seed)
-            self._a_cache = [pl.uniform_poly(rng, self.basis, self.b[0].N, pl.NTT,
-                                             device=self.b[0].device)
-                             for _ in self.b]
+            a = [pl.uniform_poly(rng, self.basis, self.b[0].N, pl.NTT,
+                                 device=self.b[0].device) for _ in self.b]
+            if self.layout is not None:
+                a = [pl.RnsPoly(p.data.index_select(-1, self.layout), p.basis,
+                                p.domain) for p in a]
+            self._a_cache = a
         return self._a_cache
 
     def at_level(self, idx: tuple[int, ...], level_basis: tuple[int, ...],

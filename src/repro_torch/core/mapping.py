@@ -16,10 +16,11 @@ along its coefficients within each, so (i)NTT communicates only within a
 limb cluster and BConv only within a coefficient cluster — the paper's
 central property.
 
-The port of ``repro.core.mapping`` without its ``make_mesh``, the JAX
-device mesh: what a mesh is for the port is decided with the distributed
-engine.  Physical placement (hop counts on the 2-D NoP mesh, XY routing)
-feeds the analytical cost model (:mod:`repro_torch.core.cost_model`).
+The port of ``repro.core.mapping``.  :meth:`ClusterMap.make_mesh` returns
+the port's mesh: one device holding (limb clusters × cores per cluster)
+logical shards, axes ("limb", "coef") (:class:`repro_torch.core.distributed.Mesh`).
+Physical placement (hop counts on the 2-D NoP mesh, XY routing) feeds the
+analytical cost model (:mod:`repro_torch.core.cost_model`).
 """
 from __future__ import annotations
 
@@ -86,6 +87,13 @@ class ClusterMap:
             dx, dy = map(int, m.groups())
             return ClusterMap(dx, dy, dx, dy)
         raise ValueError(f"unparseable cluster map {s!r}")
+
+    # -- the port's mesh ----------------------------------------------------------
+    def make_mesh(self, device="cuda"):
+        """A mesh of (n_limb_clusters, block_size) logical shards, axes
+        ("limb", "coef"), on one ``device``."""
+        from .distributed import Mesh  # lazy: distributed imports this module
+        return Mesh(self.n_limb_clusters, self.block_size, device)
 
     # -- physical NoP geometry (for the analytical cost model) -------------------
     def core_xy(self, core: int) -> tuple[int, int]:

@@ -14,8 +14,9 @@ would need ~19 dims at N = 2¹⁶ with leading batch dims.
 
 Shapes: ``x`` is ``(..., ℓ, N)`` int32/int64 with one modulus per limb row;
 the limb tables are the stacked ``(ℓ, N)`` int64 tensors of :class:`NttConsts`,
-staged per (basis, N, device) by :mod:`repro_torch.core.const_cache`.
-Outputs are int32 in [0, q).
+staged per (basis, N, device) by :mod:`repro_torch.core.const_cache` (tables
+with more leading dims broadcast against ``x``'s).  Outputs are int32 in
+[0, q).
 
 The paper's recomposable four-step form (§III-B) is here too,
 :func:`four_step_ntt` / :func:`four_step_intt`: a length-N polynomial viewed as
@@ -25,6 +26,16 @@ valid R gives the fused transform's output exactly.  It is the plain version
 of the hand-written NTT kernel (``repro_torch.kernels.ntt``), which runs the
 same dataflow on the card; its tables (:class:`FourStepConsts`) come staged as
 u32 bit patterns in int32 tensors and are widened here.
+
+The distributed engine (:mod:`repro_torch.core.distributed`) cuts the
+four-step at its one exchange, the §III-B shuffle, into the phases
+:func:`four_step_col_fwd`, :func:`four_step_row_fwd`,
+:func:`four_step_row_inv` and :func:`four_step_col_inv`.  Each runs on a
+block of a cluster map (a column slice (ℓ, R, C/cs) or a row slice
+(ℓ, R/cs, C)) with that block's slice of the tables, as the reference's
+shard bodies do (``src/repro/core/distributed.py:631-660``), and ends fully
+reduced; they are the plain versions of the NTT phase kernels
+(``repro_torch.kernels.ntt.ops.ntt_phase``).
 """
 from __future__ import annotations
 
@@ -113,8 +124,8 @@ def _ntt_lazy(x: torch.Tensor, c: NttConsts) -> torch.Tensor:
         t //= 2
         y = x.reshape(*lead, m, 2, t)
         a, b = y[..., 0, :], y[..., 1, :]
-        w = c.psi_rev[:, m:2 * m, None]
-        ws = c.psi_rev_shoup[:, m:2 * m, None]
+        w = c.psi_rev[..., m:2 * m, None]
+        ws = c.psi_rev_shoup[..., m:2 * m, None]
         bw = mm.mulmod_shoup_lazy(b, w, ws, q)
         x = torch.stack([mm.addmod_lazy(a, bw, two_q),
                          mm.submod_lazy(a, bw, two_q)], dim=-2)
@@ -139,8 +150,8 @@ def intt(x: torch.Tensor, c: NttConsts) -> torch.Tensor:
         h = m // 2
         y = x.reshape(*lead, h, 2, t)
         a, b = y[..., 0, :], y[..., 1, :]
-        w = c.psi_inv_rev[:, h:2 * h, None]
-        ws = c.psi_inv_rev_shoup[:, h:2 * h, None]
+        w = c.psi_inv_rev[..., h:2 * h, None]
+        ws = c.psi_inv_rev_shoup[..., h:2 * h, None]
         u = mm.addmod_lazy(a, b, two_q)
         v = mm.mulmod_shoup_lazy(mm.submod_lazy(a, b, two_q), w, ws, q)
         x = torch.stack([u, v], dim=-2).reshape(*lead, N)
@@ -304,3 +315,72 @@ def four_step_intt(x: torch.Tensor, fc: FourStepConsts) -> torch.Tensor:
     # inverse column NTT with its R⁻¹ scaling, which fully reduces
     B = intt(B.movedim(-1, -3), _col_consts(fc)).movedim(-3, -1)
     return B.reshape(*lead, R * C)
+
+
+# ----------------------------------------------------------------------------
+# The four-step cut at its exchange: the phases of the distributed transform
+# (the bodies of the reference's sharded programs, distributed.py:631-660)
+# ----------------------------------------------------------------------------
+
+def _cyclic_dft(x, pow_tab, pow_tab_shoup, brev_c, q):
+    """Length-C cyclic DIT NTT over the last axis, natural order and fully
+    reduced in and out (the reference's ``core/ntt._cyclic_dft``).
+
+    ``pow_tab``: (..., ℓ, C/2) int64 powers ω^i, stage m reading every
+    C/(2m)-th; x (..., ℓ, rows, C); q (..., ℓ, 1).  The tables' leading dims
+    broadcast against x's.
+    """
+    C = x.shape[-1]
+    lead = x.shape[:-1]
+    qb = q[..., None]
+    two_q = qb + qb
+    x = x.to(torch.int64).index_select(-1, brev_c)
+    m = 1
+    while m < C:
+        y = x.reshape(*lead[:-1], lead[-1] * (C // (2 * m)), 2, m)
+        a, b = y[..., 0, :], y[..., 1, :]
+        stride = C // (2 * m)
+        w = pow_tab[..., ::stride][..., :m][..., None, :]
+        ws = pow_tab_shoup[..., ::stride][..., :m][..., None, :]
+        bw = mm.mulmod_shoup_lazy(b, w, ws, qb)
+        x = torch.stack([mm.addmod_lazy(a, bw, two_q),
+                         mm.submod_lazy(a, bw, two_q)], dim=-2)
+        x = x.reshape(*lead, C)
+        m *= 2
+    return mm.reduce_once(x, qb)
+
+
+def four_step_col_fwd(A, col: NttConsts, tw, tw_shoup, q) -> torch.Tensor:
+    """Forward column phase on a column slice (..., ℓ, R, Cl): the R-point
+    negacyclic column NTT (root ψ^C, natural k₁ out), then the block's
+    twiddle columns ψ^{(2k₁+1)n₂}; fully reduced int64.
+
+    ``col``: int64 column tables whose leading dims broadcast against
+    (..., Cl, ℓ, R); ``tw`` (..., ℓ, R, Cl); q (..., ℓ, 1).
+    """
+    A = ntt(A.movedim(-1, -3), col).movedim(-3, -1)
+    return mm.mulmod_shoup(A, tw, tw_shoup, q[..., None])
+
+
+def four_step_row_fwd(A, row_pow, row_pow_shoup, brev_c, q) -> torch.Tensor:
+    """Forward row phase on a row slice (..., ℓ, Rl, C): the C-point cyclic
+    DFT of each row (root ω = ψ^{2R}); fully reduced."""
+    return _cyclic_dft(A, row_pow, row_pow_shoup, brev_c, q)
+
+
+def four_step_row_inv(B, row_pow_inv, row_pow_inv_shoup, c_inv, c_inv_shoup,
+                      brev_c, q) -> torch.Tensor:
+    """Inverse row phase on a row slice (..., ℓ, Rl, C): the inverse row DFT
+    (ω⁻¹), then C⁻¹; fully reduced.  ``c_inv`` (..., ℓ, 1)."""
+    B = _cyclic_dft(B, row_pow_inv, row_pow_inv_shoup, brev_c, q)
+    return mm.mulmod_shoup(B, c_inv[..., None], c_inv_shoup[..., None],
+                           q[..., None])
+
+
+def four_step_col_inv(B, col: NttConsts, tw_inv, tw_inv_shoup,
+                      q) -> torch.Tensor:
+    """Inverse column phase on a column slice (..., ℓ, R, Cl): the block's
+    inverse twiddle columns, then the R-point column iNTT with its R⁻¹;
+    fully reduced int32."""
+    B = mm.mulmod_shoup(B, tw_inv, tw_inv_shoup, q[..., None])
+    return intt(B.movedim(-1, -3), col).movedim(-3, -1)

@@ -18,7 +18,10 @@ On CUDA data the NTT, the iNTT and the automorphism run the hand-written
 kernels (:mod:`repro_torch.kernels.ntt`, the single-permutation kernel of
 :mod:`repro_torch.kernels.automorphism`); on CPU data they run the fused plain
 transform and ``index_select``, as the reference's ``RnsPoly`` does.  Both
-give the same canonical residues.
+give the same canonical residues.  Under an active
+:class:`~repro_torch.core.distributed.dist_scope` the NTT, the iNTT and the
+automorphism by a Galois element dispatch to the sharded engine instead (the
+trace is recorded first, then the dispatch, as the reference does).
 """
 from __future__ import annotations
 
@@ -90,6 +93,11 @@ class RnsPoly:
         if self.domain == NTT:
             return self
         trace.record("ntt", int(np.prod(self.data.shape[:-1])), self.N)
+        from . import distributed as dist  # lazy: distributed imports bconv
+        ctx = dist.dist_active()
+        if ctx is not None:
+            return RnsPoly(dist.sharded_ntt(ctx, self.data, self.basis, True),
+                           self.basis, NTT)
         if native.on_cuda(self.data):
             return RnsPoly(ntt_ops.ntt_fwd(self.data, self.basis), self.basis, NTT)
         return RnsPoly(nttm.ntt(self.data, self.c()), self.basis, NTT)
@@ -98,6 +106,11 @@ class RnsPoly:
         if self.domain == COEFF:
             return self
         trace.record("intt", int(np.prod(self.data.shape[:-1])), self.N)
+        from . import distributed as dist
+        ctx = dist.dist_active()
+        if ctx is not None:
+            return RnsPoly(dist.sharded_ntt(ctx, self.data, self.basis, False),
+                           self.basis, COEFF)
         if native.on_cuda(self.data):
             return RnsPoly(ntt_ops.ntt_inv(self.data, self.basis), self.basis, COEFF)
         return RnsPoly(nttm.intt(self.data, self.c()), self.basis, COEFF)
@@ -191,7 +204,16 @@ class RnsPoly:
         return RnsPoly(auto_ops.automorphism(self.data, perm), self.basis, NTT)
 
     def automorphism_by_gelt(self, g: int) -> "RnsPoly":
-        """φ_g via the device-staged perm table — zero per-call uploads."""
+        """φ_g via the device-staged perm table — zero per-call uploads.
+        Under a :class:`~repro_torch.core.distributed.dist_scope` the
+        slot-parallel sharded automorphism."""
+        from . import distributed as dist
+        ctx = dist.dist_active()
+        if ctx is not None:
+            assert self.domain == NTT
+            trace.record("auto", int(np.prod(self.data.shape[:-1])), self.N)
+            return RnsPoly(dist.sharded_galois(ctx, self.data, self.N, g),
+                           self.basis, NTT)
         return self.automorphism(
             const_cache.device_galois_perm(self.N, g, self.device))
 

@@ -10,7 +10,9 @@ it computes each Galois map from its affine form (two words per rotation).  The 
 :func:`repro_torch.kernels.autotune.best_config` when the caller pins none.
 The multi-permutation and eager kernels are one thread-block-cluster kernel
 that stages each source row once across the cluster's shared memory; how
-many CTAs share a row is :func:`cluster_plan`'s rule.
+many CTAs share a row is :func:`cluster_plan`'s rule.  :func:`automorphism_blocks`
+is the AutoU gather of the distributed engine's slot-parallel automorphism:
+the single-permutation kernel with an output row shorter than its input row.
 """
 from __future__ import annotations
 
@@ -93,6 +95,57 @@ def automorphism_cuda(x: torch.Tensor, perm: torch.Tensor,
     native.check("automorphism", err, "automorphism")
     config.count_launch("automorphism", "automorphism")
     return out
+
+
+def automorphism_blocks(full: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The AutoU gather on every block of a (limb, coef) mesh at once.
+
+    ``full``: (lc, cs, B, ℓ, N) int32, each block's rows all-gathered to the
+    whole length N; ``table``: (N,) int64 index table (the Galois map
+    conjugated by the scope's layout).  Block (i, j) writes its n = N/cs
+    outputs out[i, j, b, l, p] = full[i, j, b, l, table[j·n + p]].  Returns
+    (lc, cs, B, ℓ, n) int32.
+    """
+    _check_blocks(full, table)
+    if native.on_cuda(full, table):
+        return automorphism_blocks_cuda(full.contiguous(), table)
+    return automorphism_blocks_plain(full, table)
+
+
+def automorphism_blocks_plain(full: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`automorphism_blocks`: one ``torch.gather``
+    with each block's slice of the table."""
+    _check_blocks(full, table)
+    lc, cs, B, ell, N = full.shape
+    idx = table.view(1, cs, 1, 1, N // cs).expand(lc, cs, B, ell, N // cs)
+    return torch.gather(full, -1, idx)
+
+
+def automorphism_blocks_cuda(full: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Launch the single-permutation kernel (``csrc/automorphism.cu``) with
+    output rows of N/cs words, each block reading its slice of the table."""
+    _check_blocks(full, table)
+    _require_words(full, table)
+    lc, cs, B, ell, N = full.shape
+    n = N // cs
+    group = B * ell                         # rows of one block
+    rows = config.effective_block(group, None)
+    out = torch.empty((lc, cs, B, ell, n), dtype=torch.int32, device=full.device)
+    config.before_launch("automorphism")
+    with native.on_device(full):
+        err = native.lib("automorphism").automorphism_blocks_launch(
+            full.data_ptr(), table.data_ptr(), out.data_ptr(), lc * cs * group,
+            N, n, rows, group, cs, native.stream_of(full))
+    native.check("automorphism", err, "automorphism_blocks")
+    config.count_launch("automorphism", "automorphism_blocks")
+    return out
+
+
+def _check_blocks(full: torch.Tensor, table: torch.Tensor) -> None:
+    if full.dim() != 5 or full.shape[-1] % full.shape[1]:
+        raise ValueError(f"automorphism_blocks takes (lc, cs, B, ℓ, N) with cs "
+                         f"dividing N, got {tuple(full.shape)}")
+    _check_perm(full, table)
 
 
 def automorphism_eager(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:

@@ -115,3 +115,47 @@ def reset_launches() -> None:
     """Zero every per-family and per-kernel counter."""
     _launches.clear()
     _kernel_launches.clear()
+
+
+# ----------------------------------------------------------------------------
+# Collective accounting (distributed engine, repro_torch.core.distributed)
+# ----------------------------------------------------------------------------
+
+# The model's tally: one entry per collective a dispatch of the distributed
+# engine is predicted to issue (cost_model.predict_collectives), recorded at
+# the dispatch as the reference records it.  The per-shard tally multiplies
+# by the cores of the map (every core executes its slice of the collective).
+# What the mesh actually executed is counted apart, by the mesh itself
+# (core.distributed.Mesh.tally), so the two can be compared.
+_collectives: collections.Counter = collections.Counter()
+_collective_shards: collections.Counter = collections.Counter()
+
+
+def count_collective(kind: str, n: int = 1, *, shards: int = 1) -> None:
+    """Record ``n`` program-level collectives of ``kind`` ("all_to_all",
+    "all_gather"), each executed by ``shards`` mesh cores."""
+    _collectives[kind] += n
+    _collective_shards[kind] += n * shards
+
+
+def collective_counts() -> dict:
+    """Program-grain per-kind collective counts since process start."""
+    return dict(_collectives)
+
+
+def collective_shard_counts() -> dict:
+    """Per-shard (core-grain) collective counts since process start."""
+    return dict(_collective_shards)
+
+
+def collectives_since(snapshot: dict) -> dict:
+    """Per-kind collective deltas against a :func:`collective_counts`
+    snapshot (kinds with no change omitted)."""
+    return {k: n - snapshot.get(k, 0) for k, n in _collectives.items()
+            if n - snapshot.get(k, 0)}
+
+
+def reset_collectives() -> None:
+    """Zero both collective tallies."""
+    _collectives.clear()
+    _collective_shards.clear()

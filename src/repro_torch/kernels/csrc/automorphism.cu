@@ -43,7 +43,14 @@
 //
 // grid (ceil(B / rows), ceil(N / 256)); each thread reads perm[k] once and
 // gathers it for the CTA's block of ``rows`` rows (the autotuner's knob), so
-// the index read is shared by the block.
+// the index read is shared by the block.  The same kernel is the AutoU
+// gather of the distributed engine's slot-parallel automorphism
+// (automorphism_blocks, src/repro/core/distributed.py:780-788): the rows
+// there are the blocks of a (limb, coef) mesh, each all-gathered to the
+// n_in = N words of its row, and block j of each limb cluster writes its
+// n_out = N/cs outputs out[b, p] = x[b, perm[j*n_out + p]], j the group of
+// group_rows consecutive rows that b lies in, modulo the groups.  The plain
+// permutation is the case n_in = n_out = N, one group.
 //
 // automorphism_multi replaces
 // src/repro/kernels/automorphism/kernel.py:automorphism_multi_pallas (:118),
@@ -175,16 +182,19 @@ auto_ks_kernel(const uint32_t* __restrict__ exts, const uint32_t* __restrict__ e
   }
 }
 
+// The rows of a CTA lie in one group: rows divides group_rows.
 __global__ void perm_rows_kernel(const uint32_t* __restrict__ x,
                                  const int64_t* __restrict__ perm,
                                  uint32_t* __restrict__ out,
-                                 long long B, int N, int rows) {
+                                 long long B, int n_in, int n_out, int rows,
+                                 long long group_rows, int groups) {
   const int k = blockIdx.y * blockDim.x + threadIdx.x;
-  if (k >= N) return;
-  const long long src = perm[k];
+  if (k >= n_out) return;
   const long long r0 = static_cast<long long>(blockIdx.x) * rows;
+  const long long src =
+      perm[static_cast<long long>((r0 / group_rows) % groups) * n_out + k];
   const long long r1 = r0 + rows < B ? r0 + rows : B;
-  for (long long r = r0; r < r1; ++r) out[r * N + k] = x[r * N + src];
+  for (long long r = r0; r < r1; ++r) out[r * n_out + k] = x[r * n_in + src];
 }
 
 constexpr int kClusterThreads = 512;
@@ -315,7 +325,27 @@ extern "C" int automorphism_rows_launch(const void* x, const void* perm,
                   static_cast<unsigned>((N + repro::kThreads - 1) / repro::kThreads));
   perm_rows_kernel<<<grid, repro::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<const int64_t*>(perm),
-      static_cast<uint32_t*>(out), B, N, rows);
+      static_cast<uint32_t*>(out), B, N, N, rows, B, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (B, n_in) u32, perm (groups * n_out,) int64 → out (B, n_out) u32 with
+// out[b, p] = x[b, perm[((b / group_rows) % groups) * n_out + p]]; ``rows``
+// rows per CTA, a divisor of group_rows, and B a multiple of group_rows.
+extern "C" int automorphism_blocks_launch(const void* x, const void* perm,
+                                          void* out, long long B, int n_in,
+                                          int n_out, int rows,
+                                          long long group_rows, int groups,
+                                          void* stream) {
+  if (B <= 0 || n_out <= 0) return 0;
+  if (rows <= 0 || group_rows <= 0 || groups <= 0 || group_rows % rows ||
+      B % group_rows || n_in <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(B / rows),
+                  static_cast<unsigned>((n_out + repro::kThreads - 1) / repro::kThreads));
+  perm_rows_kernel<<<grid, repro::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<const int64_t*>(perm),
+      static_cast<uint32_t*>(out), B, n_in, n_out, rows, group_rows, groups);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -80,6 +80,34 @@
 //     threads per SM (64 registers), and the wrapper's default cluster size
 //     takes the largest share at which two CTAs fit an SM (N = 2^16: CCL = 4,
 //     68 KiB), so that one CTA's loads and stores overlap the other's stages.
+//
+// The distributed four-step (repro_torch.core.distributed) cuts the same
+// dataflow at its one exchange, the paper's §III-B shuffle, into four phase
+// kernels that run on every block of a (limb, coef) mesh of logical shards
+// in one launch each (the reference's shard bodies,
+// src/repro/core/distributed.py:631-660, which cut ntt_pallas's _fwd_body /
+// _inv_body in two):
+//
+//   ntt_fwd_col_kernel: on a block's column slice (R, C/cs), the R-point
+//            column NTT, then its twiddle columns psi^{(2k1+1)n2};
+//   ntt_row_kernel<false>: on a block's row slice (R/cs, C), the C-point
+//            cyclic row DFT;
+//   ntt_row_kernel<true>: the inverse row DFT, then C^-1;
+//   ntt_inv_col_kernel: the inverse twiddle columns, then the column iNTT
+//            with its R^-1.
+//
+// Each phase ends fully reduced, so whatever the exchange does to the order
+// of its chunks, the next phase reads canonical residues.  A block is
+// addressed as (i, j, b, l): limb cluster i, core j of the cluster, batch
+// row b and local limb l; the input is read through four strides (a view of
+// the global tensor, or the exchange's buffer; the n_loc words of a block
+// row are contiguous) and the output written contiguous (lc, cs, B, ell,
+// n_loc).  Limb l of cluster i uses table row i*limb_block + l (limb_block =
+// 0: every cluster holds all limbs).  A simple design that is right first
+// (the two passes this transform had before its one-pass form, the tiles
+// cut to a block): one CTA per tile of TC whole columns or TR whole rows in
+// shared memory (at most kPhaseWords words), one butterfly per thread per
+// stage between barriers.
 #include "common.cuh"
 
 namespace {
@@ -546,6 +574,218 @@ int launch(const void* x, void* out, const NttTables& tabs, int B, int ell,
   return static_cast<int>(err);
 }
 
+
+// -- the distributed four-step's phases ---------------------------------------
+
+constexpr int kPhaseWords = 4096;          // words of a phase kernel's tile
+
+struct BlockGeom {
+  long long si, sj, sb, sl;                // input strides of (i, j, b, l)
+  int cs, B, ell, limb_block;
+  long long n_loc;                         // words of one block row
+};
+
+struct BlockRow {
+  long long in_off, out_off;
+  int limb, j;
+};
+
+// Block row r of the launch: r = ((i*cs + j)*B + b)*ell + l.
+__device__ __forceinline__ BlockRow block_row(long long r, const BlockGeom& g) {
+  const int l = static_cast<int>(r % g.ell);
+  long long t = r / g.ell;
+  const int b = static_cast<int>(t % g.B);
+  t /= g.B;
+  const int j = static_cast<int>(t % g.cs);
+  const int i = static_cast<int>(t / g.cs);
+  return {i * g.si + j * g.sj + b * g.sb + l * g.sl, r * g.n_loc,
+          i * g.limb_block + l, j};
+}
+
+__device__ __forceinline__ uint32_t add_lazy(uint32_t a, uint32_t b, uint32_t two_q) {
+  return fold(a + b, two_q);
+}
+
+__device__ __forceinline__ uint32_t sub_lazy(uint32_t a, uint32_t b, uint32_t two_q) {
+  return fold(a + two_q - b, two_q);
+}
+
+// Forward column phase: a tile of TC columns of the block's (R, Cl) slice,
+// the column NTT (fused CT on natural input, bit-reversed result), then the
+// twiddle of the block's columns [j*Cl, (j+1)*Cl); canonical out.
+__global__ void ntt_fwd_col_kernel(const uint32_t* __restrict__ x,
+                                   uint32_t* __restrict__ out,
+                                   const uint32_t* __restrict__ col_w,
+                                   const uint32_t* __restrict__ col_ws,
+                                   const uint32_t* __restrict__ tw,
+                                   const uint32_t* __restrict__ tws,
+                                   const uint32_t* __restrict__ q_tab,
+                                   BlockGeom g, int R, int C, int Cl, int TC,
+                                   int lg_r) {
+  extern __shared__ uint32_t s[];
+  const BlockRow br = block_row(blockIdx.x, g);
+  const int c0 = blockIdx.y * TC;
+  const uint32_t q = q_tab[br.limb], two_q = q + q;
+  const uint32_t* xb = x + br.in_off;
+  const int n = R * TC;
+  for (int e = threadIdx.x; e < n; e += blockDim.x)
+    s[e] = xb[static_cast<long long>(e / TC) * Cl + c0 + e % TC];
+  __syncthreads();
+  const uint32_t* w = col_w + static_cast<long long>(br.limb) * R;
+  const uint32_t* ws = col_ws + static_cast<long long>(br.limb) * R;
+  const int half = (R / 2) * TC;
+  for (int m = 1, t = R / 2; m < R; m *= 2, t /= 2) {
+    for (int f = threadIdx.x; f < half; f += blockDim.x) {
+      const int c = f % TC, k = f / TC;
+      const int i = k / t, jj = i * 2 * t + k % t;
+      const uint32_t a = s[jj * TC + c];
+      const uint32_t bw = mul_shoup_lazy(s[(jj + t) * TC + c], w[m + i], ws[m + i], q);
+      s[jj * TC + c] = add_lazy(a, bw, two_q);
+      s[(jj + t) * TC + c] = sub_lazy(a, bw, two_q);
+    }
+    __syncthreads();
+  }
+  const long long tw0 = static_cast<long long>(br.limb) * R * C +
+                        static_cast<long long>(br.j) * Cl + c0;
+  uint32_t* ob = out + br.out_off;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int k1 = e / TC, c = e % TC;
+    const long long off = tw0 + static_cast<long long>(k1) * C + c;
+    const uint32_t v = mul_shoup_lazy(s[brev(k1, lg_r) * TC + c], tw[off], tws[off], q);
+    ob[static_cast<long long>(k1) * Cl + c0 + c] = reduce_once(v, q);
+  }
+}
+
+// Row phases: a tile of TR rows of the block's (Rl, C) slice, loaded
+// bit-reversed, the C-point cyclic DIT with the stage-major table (the
+// inverse's: then C^-1); canonical out, rows in place.
+template <bool kInverse>
+__global__ void ntt_row_kernel(const uint32_t* __restrict__ x,
+                               uint32_t* __restrict__ out,
+                               const uint32_t* __restrict__ st,
+                               const uint32_t* __restrict__ sts,
+                               const uint32_t* __restrict__ c_inv,
+                               const uint32_t* __restrict__ c_inv_s,
+                               const uint32_t* __restrict__ q_tab,
+                               BlockGeom g, int C, int TR, int lg_c) {
+  extern __shared__ uint32_t s[];
+  const BlockRow br = block_row(blockIdx.x, g);
+  const long long base = static_cast<long long>(blockIdx.y) * TR * C;
+  const uint32_t q = q_tab[br.limb], two_q = q + q;
+  const uint32_t* xb = x + br.in_off + base;
+  const int n = TR * C;
+  for (int e = threadIdx.x; e < n; e += blockDim.x)
+    s[(e / C) * C + brev(e % C, lg_c)] = xb[e];
+  __syncthreads();
+  const uint32_t* w = st + static_cast<long long>(br.limb) * (C - 1);
+  const uint32_t* ws = sts + static_cast<long long>(br.limb) * (C - 1);
+  const int hc = C / 2, half = TR * hc;
+  for (int m = 1; m < C; m *= 2) {
+    for (int f = threadIdx.x; f < half; f += blockDim.x) {
+      const int r = f / hc, k = f % hc;
+      const int i = k % m, jj = (k / m) * 2 * m + i;
+      uint32_t* row = s + r * C;
+      const uint32_t a = row[jj];
+      const uint32_t bw = mul_shoup_lazy(row[jj + m], w[m - 1 + i], ws[m - 1 + i], q);
+      row[jj] = add_lazy(a, bw, two_q);
+      row[jj + m] = sub_lazy(a, bw, two_q);
+    }
+    __syncthreads();
+  }
+  uint32_t* ob = out + br.out_off + base;
+  if (kInverse) {
+    const uint32_t ci = c_inv[br.limb], cis = c_inv_s[br.limb];
+    for (int e = threadIdx.x; e < n; e += blockDim.x)
+      ob[e] = reduce_once(mul_shoup_lazy(s[e], ci, cis, q), q);
+  } else {
+    for (int e = threadIdx.x; e < n; e += blockDim.x) ob[e] = reduce_once(s[e], q);
+  }
+}
+
+// Inverse column phase: a tile of TC columns of the block's (R, Cl) slice,
+// times the inverse twiddle of the block's columns on the way in (stored
+// bit-reversed), the column iNTT (fused GS), then R^-1; canonical out.
+__global__ void ntt_inv_col_kernel(const uint32_t* __restrict__ x,
+                                   uint32_t* __restrict__ out,
+                                   const uint32_t* __restrict__ col_wi,
+                                   const uint32_t* __restrict__ col_wis,
+                                   const uint32_t* __restrict__ twi,
+                                   const uint32_t* __restrict__ twis,
+                                   const uint32_t* __restrict__ r_inv,
+                                   const uint32_t* __restrict__ r_inv_s,
+                                   const uint32_t* __restrict__ q_tab,
+                                   BlockGeom g, int R, int C, int Cl, int TC,
+                                   int lg_r) {
+  extern __shared__ uint32_t s[];
+  const BlockRow br = block_row(blockIdx.x, g);
+  const int c0 = blockIdx.y * TC;
+  const uint32_t q = q_tab[br.limb], two_q = q + q;
+  const uint32_t* xb = x + br.in_off;
+  const long long tw0 = static_cast<long long>(br.limb) * R * C +
+                        static_cast<long long>(br.j) * Cl + c0;
+  const int n = R * TC;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int k1 = e / TC, c = e % TC;
+    const long long off = tw0 + static_cast<long long>(k1) * C + c;
+    s[brev(k1, lg_r) * TC + c] =
+        mul_shoup_lazy(xb[static_cast<long long>(k1) * Cl + c0 + c], twi[off], twis[off], q);
+  }
+  __syncthreads();
+  const uint32_t* w = col_wi + static_cast<long long>(br.limb) * R;
+  const uint32_t* ws = col_wis + static_cast<long long>(br.limb) * R;
+  const int half = (R / 2) * TC;
+  for (int m = R, t = 1; m > 1; m /= 2, t *= 2) {
+    const int h = m / 2;
+    for (int f = threadIdx.x; f < half; f += blockDim.x) {
+      const int c = f % TC, k = f / TC;
+      const int i = k / t, jj = i * 2 * t + k % t;
+      const uint32_t a = s[jj * TC + c], v = s[(jj + t) * TC + c];
+      s[jj * TC + c] = add_lazy(a, v, two_q);
+      s[(jj + t) * TC + c] = mul_shoup_lazy(sub_lazy(a, v, two_q), w[h + i], ws[h + i], q);
+    }
+    __syncthreads();
+  }
+  const uint32_t ri = r_inv[br.limb], ris = r_inv_s[br.limb];
+  uint32_t* ob = out + br.out_off;
+  for (int e = threadIdx.x; e < n; e += blockDim.x)
+    ob[static_cast<long long>(e / TC) * Cl + c0 + e % TC] =
+        reduce_once(mul_shoup_lazy(s[e], ri, ris, q), q);
+}
+
+// The launch geometry of a phase: grid (block rows, tiles of one block).
+struct PhasePlan {
+  bool ok;
+  BlockGeom g;
+  long long rows;
+  int tiles, tile;                         // tiles per block row, TC or TR
+};
+
+PhasePlan phase_plan(bool column, long long si, long long sj, long long sb,
+                     long long sl, int lc, int cs, int B, int ell,
+                     int limb_block, int R, int C) {
+  PhasePlan p{};
+  const bool pow2 = R >= 2 && C >= 2 && (R & (R - 1)) == 0 && (C & (C - 1)) == 0;
+  p.ok = pow2 && lc > 0 && cs > 0 && B > 0 && ell > 0 && R % cs == 0 &&
+         C % cs == 0 && R <= kPhaseWords && C <= kPhaseWords &&
+         limb_block >= 0 && (limb_block == 0 || limb_block == ell);
+  if (!p.ok) return p;
+  const int width = column ? C / cs : C;   // words of a tile's row
+  const int height = column ? R : R / cs;  // rows of the block
+  if (column) {
+    p.tile = width < kPhaseWords / R ? width : kPhaseWords / R;
+    p.tiles = width / p.tile;
+  } else {
+    const int tr = kPhaseWords / C;
+    p.tile = height < tr ? height : tr;
+    p.tiles = height / p.tile;
+  }
+  p.rows = static_cast<long long>(lc) * cs * B * ell;
+  p.ok = p.rows <= 0x7fffffffLL && p.tiles <= 65535;
+  p.g = {si, sj, sb, sl, cs, B, ell, limb_block,
+         static_cast<long long>(R) * C / cs};
+  return p;
+}
+
 }  // namespace
 
 // x, out (B, N) u32 with N = R*C and B a multiple of ell; clusters of
@@ -583,3 +823,72 @@ extern "C" int ntt_inv_launch(const void* x, void* out, const void* col_wi,
       static_cast<const uint32_t*>(c_inv_s)};
   return launch<false>(x, out, tabs, B, ell, R, C, cluster, staged, stream);
 }
+
+
+// The distributed four-step's phases on the blocks of a (limb, coef) mesh:
+// x read through the strides (si, sj, sb, sl) of its (i, j, b, l) dims, the
+// n_loc = R*C/cs words of a block row contiguous; out (lc, cs, B, ell,
+// n_loc) contiguous.  Tables as in the header note, each phase its own.
+#define PHASE_ARGS long long si, long long sj, long long sb, long long sl, \
+    int lc, int cs, int B, int ell, int limb_block, int R, int C, void* stream
+
+extern "C" int ntt_fwd_col_launch(const void* x, void* out, const void* col_w,
+                                  const void* col_ws, const void* tw,
+                                  const void* tws, const void* q, PHASE_ARGS) {
+  const PhasePlan p = phase_plan(true, si, sj, sb, sl, lc, cs, B, ell, limb_block, R, C);
+  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
+  ntt_fwd_col_kernel<<<dim3(static_cast<unsigned>(p.rows), p.tiles), repro::kThreads,
+                       static_cast<size_t>(R) * p.tile * 4,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(col_w), static_cast<const uint32_t*>(col_ws),
+      static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(tws),
+      static_cast<const uint32_t*>(q), p.g, R, C, C / cs, p.tile, log2i(R));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ntt_fwd_row_launch(const void* x, void* out, const void* st,
+                                  const void* sts, const void* q, PHASE_ARGS) {
+  const PhasePlan p = phase_plan(false, si, sj, sb, sl, lc, cs, B, ell, limb_block, R, C);
+  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
+  ntt_row_kernel<false><<<dim3(static_cast<unsigned>(p.rows), p.tiles), repro::kThreads,
+                          static_cast<size_t>(C) * p.tile * 4,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(st), static_cast<const uint32_t*>(sts),
+      nullptr, nullptr, static_cast<const uint32_t*>(q), p.g, C, p.tile, log2i(C));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ntt_inv_row_launch(const void* x, void* out, const void* sti,
+                                  const void* stis, const void* c_inv,
+                                  const void* c_inv_s, const void* q, PHASE_ARGS) {
+  const PhasePlan p = phase_plan(false, si, sj, sb, sl, lc, cs, B, ell, limb_block, R, C);
+  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
+  ntt_row_kernel<true><<<dim3(static_cast<unsigned>(p.rows), p.tiles), repro::kThreads,
+                         static_cast<size_t>(C) * p.tile * 4,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(sti), static_cast<const uint32_t*>(stis),
+      static_cast<const uint32_t*>(c_inv), static_cast<const uint32_t*>(c_inv_s),
+      static_cast<const uint32_t*>(q), p.g, C, p.tile, log2i(C));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ntt_inv_col_launch(const void* x, void* out, const void* col_wi,
+                                  const void* col_wis, const void* twi,
+                                  const void* twis, const void* r_inv,
+                                  const void* r_inv_s, const void* q, PHASE_ARGS) {
+  const PhasePlan p = phase_plan(true, si, sj, sb, sl, lc, cs, B, ell, limb_block, R, C);
+  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
+  ntt_inv_col_kernel<<<dim3(static_cast<unsigned>(p.rows), p.tiles), repro::kThreads,
+                       static_cast<size_t>(R) * p.tile * 4,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(col_wi), static_cast<const uint32_t*>(col_wis),
+      static_cast<const uint32_t*>(twi), static_cast<const uint32_t*>(twis),
+      static_cast<const uint32_t*>(r_inv), static_cast<const uint32_t*>(r_inv_s),
+      static_cast<const uint32_t*>(q), p.g, R, C, C / cs, p.tile, log2i(R));
+  return static_cast<int>(cudaGetLastError());
+}
+#undef PHASE_ARGS

@@ -47,10 +47,15 @@ SIGNATURES = {
         "automorphism_multi_launch": [_P, _P, _P] + [_I] * 7 + [_P],
         "automorphism_rows_launch": [_P, _P, _P, _LL, _I, _I, _P],
         "automorphism_eager_launch": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+        "automorphism_blocks_launch": [_P, _P, _P, _LL, _I, _I, _I, _LL, _I, _P],
     },
     "ntt": {
         "ntt_fwd_launch": [_P] * 9 + [_I] * 6 + [_P],
         "ntt_inv_launch": [_P] * 13 + [_I] * 6 + [_P],
+        "ntt_fwd_col_launch": [_P] * 7 + [_LL] * 4 + [_I] * 7 + [_P],
+        "ntt_fwd_row_launch": [_P] * 5 + [_LL] * 4 + [_I] * 7 + [_P],
+        "ntt_inv_row_launch": [_P] * 7 + [_LL] * 4 + [_I] * 7 + [_P],
+        "ntt_inv_col_launch": [_P] * 9 + [_LL] * 4 + [_I] * 7 + [_P],
     },
 }
 

@@ -9,6 +9,12 @@ four-step of :mod:`repro_torch.core.ntt` at the same R.  Unpinned knobs
 resolve through :func:`repro_torch.kernels.autotune.best_config`: R (a cold
 cache gives R = √N) and ``cluster``, the CTAs that share one limb (a cold
 cache gives :func:`cluster_plan`).
+
+:func:`ntt_phase` runs one phase of the distributed four-step
+(:mod:`repro_torch.core.distributed`) on every block of a mesh at once: the
+forward column phase, the forward row phase, the inverse row phase or the
+inverse column phase (``csrc/ntt.cu``: ``ntt_fwd_col_kernel`` …, one launch
+per phase; on CPU tensors the phases of :mod:`repro_torch.core.ntt`).
 """
 from __future__ import annotations
 
@@ -154,6 +160,149 @@ def ntt_cuda(x: torch.Tensor, fc: nttm.FourStepConsts, forward: bool,
                      x.numel() // N, ell, R, C, cluster,
                      int(stage_pairs(N, R, cluster)), native.stream_of(x))
     name = "ntt_fwd" if forward else "ntt_inv"
+    native.check("ntt", err, name)
+    config.count_launch("ntt", name)
+    return out
+
+
+# ----------------------------------------------------------------------------
+# The distributed four-step's phases, on the blocks of a mesh
+# ----------------------------------------------------------------------------
+
+#: The four phases, in the order a forward then an inverse transform runs them.
+PHASES = ("fwd_col", "fwd_row", "inv_row", "inv_col")
+
+
+def _phase_shape(x: torch.Tensor, fc: nttm.FourStepConsts,
+                 phase: str) -> tuple[int, int]:
+    """(rows, cols) of one block of ``x`` for ``phase``: the column slice
+    (R, C/cs) or the row slice (R/cs, C)."""
+    if phase not in PHASES:
+        raise ValueError(f"unknown NTT phase {phase!r} — one of {PHASES}")
+    if x.dim() != 5:
+        raise ValueError(f"ntt_phase takes (lc, cs, B, ℓ, n) blocks, got {tuple(x.shape)}")
+    cs = x.shape[1]
+    R, C = fc.R, fc.C
+    if R % cs or C % cs:
+        raise ValueError(f"ntt_phase: {cs} blocks per limb cluster cannot split {R}×{C}")
+    rows, cols = (R, C // cs) if phase.endswith("col") else (R // cs, C)
+    if x.shape[-1] != rows * cols:
+        raise ValueError(f"ntt_phase {phase}: blocks of {x.shape[-1]} words, "
+                         f"expected {rows}×{cols}")
+    return rows, cols
+
+
+def _check_limbs(x: torch.Tensor, fc: nttm.FourStepConsts, limb_block: int) -> None:
+    lc, ell = x.shape[0], fc.q.shape[0]
+    want = lc * x.shape[3] if limb_block else x.shape[3]
+    if want != ell or (limb_block and limb_block != x.shape[3]):
+        raise ValueError(f"ntt_phase: {lc} limb clusters of {x.shape[3]} limbs "
+                         f"(limb_block {limb_block}) for tables of {ell} limbs")
+
+
+def ntt_phase(x: torch.Tensor, fc: nttm.FourStepConsts, phase: str,
+              limb_block: int) -> torch.Tensor:
+    """One phase of the distributed four-step on every block of a mesh.
+
+    ``x``: (lc, cs, B, ℓ_loc, n_loc) int32 blocks, any strides over the first
+    four dims and n_loc contiguous words: block (i, j) holds ℓ_loc limbs of
+    the column slice (R, C/cs) j (column phases) or of the row slice
+    (R/cs, C) j (row phases).  ``limb_block``: ℓ_loc when the limbs are split
+    over the limb clusters (block row i holds limbs i·ℓ_loc …), 0 when every
+    cluster holds all ℓ.  ``fc``: the four-step tables of the whole basis.
+    Returns fresh contiguous (lc, cs, B, ℓ_loc, n_loc) int32 blocks, fully
+    reduced.  CUDA tensors run the phase kernel, CPU tensors the plain phase.
+    """
+    _phase_shape(x, fc, phase)
+    _check_limbs(x, fc, limb_block)
+    if native.on_cuda(x):
+        return ntt_phase_cuda(x, fc, phase, limb_block)
+    return ntt_phase_plain(x, fc, phase, limb_block)
+
+
+def _limb_rows(t: torch.Tensor, lc: int, limb_block: int) -> torch.Tensor:
+    """A per-limb table (ℓ, ...) as (lc or 1, 1, 1, ℓ_loc, ...): the rows of
+    each limb cluster's limbs, broadcast over the coef and batch dims."""
+    t = nttm._u32(t)
+    if limb_block:
+        return t.reshape(lc, 1, 1, limb_block, *t.shape[1:])
+    return t.reshape(1, 1, 1, *t.shape)
+
+
+def _twiddle_blocks(t: torch.Tensor, lc: int, cs: int,
+                    limb_block: int) -> torch.Tensor:
+    """The twiddles (ℓ, R, C) sliced as the blocks hold them: block (i, j)
+    reads its limbs' rows and the columns [j·C/cs, (j+1)·C/cs)."""
+    ell, R, C = t.shape
+    t = nttm._u32(t).reshape(ell, R, cs, C // cs).permute(2, 0, 1, 3)
+    if limb_block:
+        t = t.reshape(cs, lc, limb_block, R, C // cs).transpose(0, 1)
+        return t.unsqueeze(2)
+    return t.unsqueeze(0).unsqueeze(2)
+
+
+def ntt_phase_plain(x: torch.Tensor, fc: nttm.FourStepConsts, phase: str,
+                    limb_block: int) -> torch.Tensor:
+    """The plain version of :func:`ntt_phase`: the phase functions of
+    :mod:`repro_torch.core.ntt` on the block batch, each block reading its
+    slice of the tables."""
+    rows, cols = _phase_shape(x, fc, phase)
+    lc, cs = x.shape[:2]
+    A = x.reshape(*x.shape[:4], rows, cols)
+    q = _limb_rows(fc.q, lc, limb_block)
+    if phase.endswith("col"):
+        # column tables against (..., cols, ℓ, R): one more broadcast dim
+        col = nttm.NttConsts(*(
+            _limb_rows(t, lc, limb_block).unsqueeze(3) if t.dim() == 2 else t.to(torch.int64)
+            for t in fc.col))
+        if phase == "fwd_col":
+            out = nttm.four_step_col_fwd(
+                A, col, _twiddle_blocks(fc.twiddle, lc, cs, limb_block),
+                _twiddle_blocks(fc.twiddle_shoup, lc, cs, limb_block), q)
+        else:
+            out = nttm.four_step_col_inv(
+                A, col, _twiddle_blocks(fc.twiddle_inv, lc, cs, limb_block),
+                _twiddle_blocks(fc.twiddle_inv_shoup, lc, cs, limb_block), q)
+    elif phase == "fwd_row":
+        out = nttm.four_step_row_fwd(
+            A, _limb_rows(fc.row_pow, lc, limb_block),
+            _limb_rows(fc.row_pow_shoup, lc, limb_block), fc.brev_c, q)
+    else:
+        out = nttm.four_step_row_inv(
+            A, _limb_rows(fc.row_pow_inv, lc, limb_block),
+            _limb_rows(fc.row_pow_inv_shoup, lc, limb_block),
+            _limb_rows(fc.c_inv, lc, limb_block),
+            _limb_rows(fc.c_inv_shoup, lc, limb_block), fc.brev_c, q)
+    return out.reshape(x.shape).to(torch.int32)
+
+
+def ntt_phase_cuda(x: torch.Tensor, fc: nttm.FourStepConsts, phase: str,
+                   limb_block: int) -> torch.Tensor:
+    """Launch the phase kernel (``csrc/ntt.cu``): one launch over every
+    block, which reads ``x`` through its strides."""
+    _phase_shape(x, fc, phase)
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    native.require({"x": x}, torch.int32, x.device, contiguous=False)
+    tabs = {"fwd_col": (fc.col.psi_rev, fc.col.psi_rev_shoup, fc.twiddle,
+                        fc.twiddle_shoup, fc.q),
+            "fwd_row": (fc.row_stage, fc.row_stage_shoup, fc.q),
+            "inv_row": (fc.row_stage_inv, fc.row_stage_inv_shoup, fc.c_inv,
+                        fc.c_inv_shoup, fc.q),
+            "inv_col": (fc.col.psi_inv_rev, fc.col.psi_inv_rev_shoup,
+                        fc.twiddle_inv, fc.twiddle_inv_shoup, fc.col.n_inv,
+                        fc.col.n_inv_shoup, fc.q)}[phase]
+    native.require({f"table {i}": t for i, t in enumerate(tabs)}, torch.int32,
+                   x.device)
+    lc, cs, B, ell = x.shape[:4]
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    launch = getattr(native.lib("ntt"), f"ntt_{phase}_launch")
+    name = f"ntt_{phase}"
+    config.before_launch("ntt")
+    with native.on_device(x):
+        err = launch(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
+                     *x.stride()[:4], lc, cs, B, ell, limb_block, fc.R, fc.C,
+                     native.stream_of(x))
     native.check("ntt", err, name)
     config.count_launch("ntt", name)
     return out

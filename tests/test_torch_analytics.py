@@ -107,7 +107,8 @@ def test_cluster_map_matches_reference(jx, cm):
     assert ClusterMap.parse(cm.name) == cm
     parsed = jx.M.ClusterMap.parse(cm.name)
     assert (parsed.dx, parsed.dy, parsed.bh, parsed.bw) == (cm.dx, cm.dy, cm.bh, cm.bw)
-    assert not hasattr(cm, "make_mesh")       # the distributed slice's
+    mesh = cm.make_mesh("cpu")                # the distributed engine's mesh
+    assert mesh.shape == {"limb": cm.n_limb_clusters, "coef": cm.block_size}
 
 
 def test_cluster_map_rejects_what_the_reference_rejects(jx):

@@ -605,7 +605,13 @@ HOOKED = {"efu": ("eltwise", "efu_launch", "eltwise"),
                                  "automorphism"),
           "automorphism_multi": ("automorphism", "automorphism_multi_launch",
                                  "automorphism"),
-          "auto_ks": ("automorphism", "auto_ks_launch", "auto_ks")}
+          "auto_ks": ("automorphism", "auto_ks_launch", "auto_ks"),
+          "ntt_fwd_col": ("ntt", "ntt_fwd_col_launch", "ntt"),
+          "ntt_fwd_row": ("ntt", "ntt_fwd_row_launch", "ntt"),
+          "ntt_inv_row": ("ntt", "ntt_inv_row_launch", "ntt"),
+          "ntt_inv_col": ("ntt", "ntt_inv_col_launch", "ntt"),
+          "automorphism_blocks": ("automorphism", "automorphism_blocks_launch",
+                                  "automorphism")}
 
 
 def hooked_case(kernel, dev):
@@ -637,6 +643,16 @@ def hooked_case(kernel, dev):
     if kernel == "automorphism_multi":
         return (lambda: auto_ops.automorphism_multi_cuda(x[:1], perms),
                 lambda: auto_ops.automorphism_multi_plain(x[:1], perms))
+    if kernel.startswith("ntt_") and kernel[4:] in ntt_ops.PHASES:
+        phase = kernel[4:]
+        fc = const_cache.device_four_step_consts(basis, N, 32, dev)
+        blocks = x.reshape(2, 3, 2, 512).permute(0, 2, 1, 3).unsqueeze(0)
+        return (lambda: ntt_ops.ntt_phase_cuda(blocks, fc, phase, 0),
+                lambda: ntt_ops.ntt_phase_plain(blocks, fc, phase, 0))
+    if kernel == "automorphism_blocks":
+        full = x.reshape(1, 1, 2, 3, N).expand(1, 2, 2, 3, N).contiguous()
+        return (lambda: auto_ops.automorphism_blocks_cuda(full, perm),
+                lambda: auto_ops.automorphism_blocks_plain(full, perm))
     ev = [pl.to_tensor(residue_words(basis, (2, 2), N, seed=s), dev) for s in (32, 33)]
     return (lambda: auto_ops.auto_ks_cuda(x[:, None], ev[0], ev[1], gs, basis),
             lambda: auto_ops.auto_ks_plain(x[:, None], ev[0], ev[1], perms,
@@ -757,3 +773,91 @@ def test_served_wave_same_bytes_on_card_and_cpu(dev, engine, monkeypatch):
     assert records["cpu"]["outputs"] == records[str(dev)]["outputs"] \
         == ref["engines"][engine]["batched"]["outputs"]
     assert all(launches.get(k, 0) > 0 for k in ("efu", "ntt_fwd", "ntt_inv", "bconvu"))
+
+
+# ------------------------------------------------------- distributed slice
+
+# the paper's widths: N = 2¹⁶, ℓ = 48; R as the engine picks it for cs
+DIST_N = 1 << 16
+DIST_CS = (1, 2, 4, 8, 16)
+
+
+def dist_R(cs, n=DIST_N):
+    from repro_torch.core import distributed as D
+    from repro_torch.core.mapping import ClusterMap
+    return D.DistContext(ClusterMap(1, cs, 1, cs), None).submodules(n)
+
+
+@pytest.mark.parametrize("sharded", [True, False])
+@pytest.mark.parametrize("phase", ntt_ops.PHASES)
+@pytest.mark.parametrize("cs", DIST_CS)
+def test_ntt_phase_kernels_at_shard_shapes(dev, cs, phase, sharded):
+    """Each phase kernel of the distributed four-step against its plain
+    version on the blocks of a (4, cs) mesh at N = 2¹⁶, ℓ = 48, B = 2: the
+    limbs split over the limb clusters (read as a strided view of the global
+    tensor) or replicated (a stride-0 view); one launch each."""
+    from repro_torch.core import distributed as D
+    R = dist_R(cs)
+    basis = tuple(rns.gen_ntt_primes(48, DIST_N))
+    fc = const_cache.device_four_step_consts(basis, DIST_N, R, dev)
+    x = pl.to_tensor(residue_words(basis, (2,), DIST_N, seed=cs), dev)
+    mesh = D.Mesh(4, cs, dev)
+    blocks = mesh.place(x, sharded)
+    limb_block = 12 if sharded else 0
+    config.reset_launches()
+    got = ntt_ops.ntt_phase(blocks, fc, phase, limb_block)
+    assert config.kernel_launch_counts() == {f"ntt_{phase}": 1}
+    assert torch.equal(got, ntt_ops.ntt_phase_plain(blocks, fc, phase, limb_block))
+
+
+@pytest.mark.parametrize("cs", DIST_CS)
+def test_distributed_ntt_on_card_equals_the_transform(dev, cs):
+    """The four phase kernels with the mesh's exchange give the single-device
+    kernel's NTT permuted into the scope's layouts, at N = 2¹⁶ on a (4, cs)
+    mesh, and the inverse returns the input."""
+    from repro_torch.core import distributed as D
+    R = dist_R(cs)
+    basis = tuple(rns.gen_ntt_primes(8, DIST_N))
+    x = pl.to_tensor(residue_words(basis, (), DIST_N, seed=cs), dev)
+    cperm, nperm = (torch.as_tensor(D.dist_layout(DIST_N, R, cs, d)[0].astype(np.int64),
+                                    device=dev) for d in (pl.COEFF, pl.NTT))
+    mesh = D.Mesh(4, cs, dev)
+    got = D.run_dist_ntt_fourstep(mesh, x.index_select(-1, cperm), basis, R)
+    assert torch.equal(got, ntt_ops.ntt_fwd(x, basis).index_select(-1, nperm))
+    back = D.run_dist_ntt_fourstep(mesh, got, basis, R, forward=False)
+    assert torch.equal(back, x.index_select(-1, cperm))
+
+
+@pytest.mark.parametrize("cs", DIST_CS)
+def test_automorphism_blocks_kernel_at_shard_shapes(dev, cs):
+    """The AutoU gather variant (output rows of N/cs words) against its
+    plain version, through the engine's layout-conjugated table, at
+    N = 2¹⁶ on a (4, cs) mesh with (B, ℓ) = (2, 12) per block."""
+    from repro_torch.core import distributed as D
+    R = dist_R(cs)
+    table = D._galois_layout_table(DIST_N, R, pl.galois_elt(1, DIST_N), dev)
+    basis = tuple(rns.gen_ntt_primes(12, DIST_N))
+    rows = pl.to_tensor(residue_words(basis, (4, cs, 2), DIST_N, seed=cs), dev)
+    config.reset_launches()
+    got = auto_ops.automorphism_blocks(rows, table)
+    assert config.kernel_launch_counts() == {"automorphism_blocks": 1}
+    assert got.shape == (4, cs, 2, 12, DIST_N // cs)
+    assert torch.equal(got, auto_ops.automorphism_blocks_plain(rows, table))
+
+
+@pytest.mark.parametrize("name", ["2x2-DW", "4x2-BK-1x2", "4x4-BK-2x2",
+                                  "4x4-coef-scatter"])
+def test_sharded_pipeline_same_bytes_on_card_and_cpu(dev, name, monkeypatch):
+    """hmult → rescale → hrot_hoisted([1, 2]) under dist_scope at N = 256
+    gives the same digests and collectives on the card as on the CPU, with
+    no plain ring op on card data."""
+    from repro_torch.core import _dist_selftest as S
+    from repro_torch.core.mapping import ClusterMap
+    guard_plain_ring_ops(monkeypatch)
+    cm = ClusterMap.parse(name)
+    p = prm.make_params(N=256, L=8, K=2, dnum=4)
+    out = {}
+    for device in ("cpu", dev):
+        ks, ct1, ct2 = S._make_inputs(p, device=device)
+        out[str(device)] = S._pipeline_run(cm, p, ks, ct1, ct2, device)
+    assert out["cpu"] == out[str(dev)]
