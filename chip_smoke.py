@@ -290,7 +290,8 @@ def ptxas_report(log: str, kernel: str) -> list[str]:
 # on the cluster size and BConvU on ℓ, so each reports one entry per
 # instantiation.
 PTXAS_KERNELS = (("automorphism", "perm_cluster_kernel"), ("ntt", "ntt_fwd_kernel"),
-                 ("ntt", "ntt_inv_kernel"), ("bconv", "bconv_kernel"),
+                 ("ntt", "ntt_inv_kernel"), ("ntt", "ntt_col_phase_kernel"),
+                 ("ntt", "ntt_row_phase_kernel"), ("bconv", "bconv_kernel"),
                  ("automorphism", "auto_ks_kernel"), ("eltwise", "efu_kernel"))
 
 
@@ -1568,7 +1569,8 @@ def _dist_prims(ctx, params, gen):
 def _dist_kernel_rows(params, gen):
     """The distributed path's kernels at the 4x4-BK-2x2 shard shapes of
     hmult's (2, 48, N) operands against their plain versions: the four NTT
-    phases on (4, 4, 2, 12, N/4) blocks, the AutoU block gather of the
+    phases on (4, 4, 2, 12, N/4) blocks (then on 4x4-coef-scatter's
+    (1, 16, 2, 48, N/16) blocks), the AutoU block gather of the
     all-gathered (4, 4, 2, 12, N) rows, BConvU under limb duplication (a
     cluster's launch: ModUp 12 → its 12 of 48 primes at n = N/4) and under
     ARK (48 → 12 at n = N/16 on every block)."""
@@ -1590,26 +1592,30 @@ def _dist_kernel_rows(params, gen):
     case = functools.partial(kernel_case, rows)
     src = "src/repro_torch/kernels/csrc/"
     words = 2 * L * N                         # one (2, 48, N) operand
-    x = residues(q48, (2,), N, gen)
-    blocks = ctx.mesh.place(x, True)          # (4, 4, 2, 12, N/4) strided view
-    contiguous = residues(q48, (2,), N, gen).reshape(2, 4, 12, 4, N // 4) \
-        .permute(1, 3, 0, 2, 4).contiguous()  # an exchange's output buffer
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # bytes: data in and out once, the phase's tables (the twiddle pair for
     # the column phases, the stage pair for the row phases); operations: 7
     # per butterfly (Shoup product, add, subtract, two folds) and 5 per
     # twiddle or scaling product
-    for phase, operand in (("fwd_col", blocks), ("fwd_row", contiguous),
-                           ("inv_row", contiguous), ("inv_col", contiguous)):
-        col = phase.endswith("col")
-        tables = 2 * L * N if col else 2 * L * (C - 1)
-        stages = math.log2(R if col else C)
-        scalings = 2 if phase == "inv_col" else 1
-        case(f"ntt_{phase}", f"ntt_{phase}_4x4_2x12", "ntt", src + "ntt.cu",
-             "src/repro/kernels/ntt/kernel.py:156",
-             lambda a, ph=phase: ntt_ops.ntt_phase_cuda(a, fc, ph, 12),
-             lambda a, ph=phase: ntt_ops.ntt_phase_plain(a, fc, ph, 12), [operand],
-             nbytes=(2 * words + tables) * 4 + L * 16,
-             ops=words * (3.5 * stages + 5 * scalings))
+    for lc, cs in ((4, 4), (1, 16)):          # 4x4-BK-2x2, then 4x4-coef-scatter
+        ell = L // lc
+        x = residues(q48, (2,), N, gen)
+        blocks = D.Mesh(lc, cs, dev).place(x, True)    # a strided view
+        contiguous = residues(q48, (2,), N, gen).reshape(2, lc, ell, cs, N // cs) \
+            .permute(1, 3, 0, 2, 4).contiguous()       # an exchange's output buffer
+        for phase, operand in (("fwd_col", blocks), ("fwd_row", contiguous),
+                               ("inv_row", contiguous), ("inv_col", contiguous)):
+            col = phase.endswith("col")
+            tables = 2 * L * N if col else 2 * L * (C - 1)
+            stages = math.log2(R if col else C)
+            scalings = 2 if phase == "inv_col" else 1
+            plan = ntt_ops.phase_plan(phase, lc, cs, 2, ell, R, C, sms)
+            case(f"ntt_{phase}", f"ntt_{phase}_{lc}x{cs}_2x{ell}", "ntt",
+                 src + "ntt.cu", "src/repro/kernels/ntt/kernel.py:156",
+                 lambda a, ph=phase, e=ell: ntt_ops.ntt_phase_cuda(a, fc, ph, e),
+                 lambda a, ph=phase, e=ell: ntt_ops.ntt_phase_plain(a, fc, ph, e),
+                 [operand], nbytes=(2 * words + tables) * 4 + L * 16,
+                 ops=words * (3.5 * stages + 5 * scalings), info={"plan": plan._asdict()})
     table = D._galois_layout_table(N, R, pl.galois_elt(1, N), dev)
     full = residues(q48, (2,), N, gen).reshape(2, 4, 12, N).permute(1, 0, 2, 3) \
         .unsqueeze(1).expand(4, 4, 2, 12, N).contiguous()
@@ -1829,8 +1835,13 @@ DESIGN["ntt_inv"] = DESIGN["ntt_fwd"]
 for _phase in ("fwd_col", "fwd_row", "inv_row", "inv_col"):
     DESIGN[f"ntt_{_phase}"] = (
         "one phase of the distributed four-step on every block of the mesh in "
-        "one launch: a CTA per tile of whole columns or rows of a block in "
-        "shared memory, blocks read through their strides, canonical out")
+        "one launch (ntt_col_phase_kernel / ntt_row_phase_kernel): a CTA per "
+        "tile of whole columns (R x 16) or rows (16 x C) of one batch row of "
+        "one limb, the B CTAs of a tile neighbours in the grid; the limb's "
+        "stage pairs and the tile's twiddle columns in shared memory; the "
+        "one-pass kernel's register-blocked passes (16 words a thread, four "
+        "stages per barrier) on XOR-swizzled tiles; every index a shift, mask "
+        "or bit reversal; loads by cp.async, 16-byte stores; canonical out")
 DESIGN["automorphism_blocks"] = ("perm_rows_kernel with an output row of N/cs "
                                  "words: each block gathers its slice of the "
                                  "outputs from its all-gathered row")
@@ -1858,7 +1869,7 @@ def kernel_table(rows, paths):
                       "cases": [{k: c[k] for k in (
                           "name", "shape", "equal", "max_abs_err", "ms",
                           "plain_ms", "bound_ms", "bound_by", "library_ms",
-                          "R", "cluster", "smem_bytes_per_cta", "ms_by_cluster",
+                          "R", "cluster", "smem_bytes_per_cta", "ms_by_cluster", "plan",
                           "chunk", "resident_ctas", "op")
                           if k in c} for c in cases]})
     return table

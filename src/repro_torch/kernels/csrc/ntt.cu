@@ -82,19 +82,19 @@
 //     68 KiB), so that one CTA's loads and stores overlap the other's stages.
 //
 // The distributed four-step (repro_torch.core.distributed) cuts the same
-// dataflow at its one exchange, the paper's §III-B shuffle, into four phase
-// kernels that run on every block of a (limb, coef) mesh of logical shards
-// in one launch each (the reference's shard bodies,
+// dataflow at its one exchange, the paper's §III-B shuffle, into four phases
+// that run on every block of a (limb, coef) mesh of logical shards in one
+// launch each (the reference's shard bodies,
 // src/repro/core/distributed.py:631-660, which cut ntt_pallas's _fwd_body /
-// _inv_body in two):
+// _inv_body in two), built from two kernels:
 //
-//   ntt_fwd_col_kernel: on a block's column slice (R, C/cs), the R-point
-//            column NTT, then its twiddle columns psi^{(2k1+1)n2};
-//   ntt_row_kernel<false>: on a block's row slice (R/cs, C), the C-point
-//            cyclic row DFT;
-//   ntt_row_kernel<true>: the inverse row DFT, then C^-1;
-//   ntt_inv_col_kernel: the inverse twiddle columns, then the column iNTT
-//            with its R^-1.
+//   ntt_col_phase_kernel<true>: on a block's column slice (R, C/cs), the
+//            R-point column NTT, then its twiddle columns psi^{(2k1+1)n2};
+//   ntt_row_phase_kernel<true>: on a block's row slice (R/cs, C), the
+//            C-point cyclic row DFT;
+//   ntt_row_phase_kernel<false>: the inverse row DFT, then C^-1;
+//   ntt_col_phase_kernel<false>: the inverse twiddle columns, then the
+//            column iNTT with its R^-1.
 //
 // Each phase ends fully reduced, so whatever the exchange does to the order
 // of its chunks, the next phase reads canonical residues.  A block is
@@ -103,11 +103,50 @@
 // the global tensor, or the exchange's buffer; the n_loc words of a block
 // row are contiguous) and the output written contiguous (lc, cs, B, ell,
 // n_loc).  Limb l of cluster i uses table row i*limb_block + l (limb_block =
-// 0: every cluster holds all limbs).  A simple design that is right first
-// (the two passes this transform had before its one-pass form, the tiles
-// cut to a block): one CTA per tile of TC whole columns or TR whole rows in
-// shared memory (at most kPhaseWords words), one butterfly per thread per
-// stage between barriers.
+// 0: every cluster holds all limbs).
+//
+// Bound on the H100: bytes.  A row phase moves its data in and out once
+// (the C - 1 stage pairs per limb are noise); a column phase also the
+// twiddle columns of its limbs, (R, C) words twice (w and w'), which at
+// B = 2 are half as many bytes as the data.  Each phase does the butterflies
+// of half a transform, about 10 integer operations per byte it must move.
+//
+// Design.  A CTA holds one tile of one batch row of one limb of one block in
+// shared memory: R x TC whole columns (TC = 16 at R = 256) or TR x C whole
+// rows (TR = 16 at C = 256), 4096 words; kernels/ntt/ops.py:phase_plan
+// picks the tile (narrower where a launch would leave SMs idle).  It runs
+// the one-pass kernel's column or row half on that tile with the same
+// device functions (col_pass, row_pass, local_stages).  Against what held
+// the first phase kernels back:
+//   - integer division in every index: every size is a power of two passed
+//     as its logarithm, every index a shift, a mask or a bit reversal
+//     (__brev); the block, limb, tile and batch row come from the grid
+//     position once per CTA (one division by B); at C = 256 and TR = 16 the
+//     row kernel is built for that geometry and its indices fold to
+//     constants;
+//   - one butterfly per thread per stage, then a barrier: each thread holds
+//     16 words of a column or row in registers and runs four radix-2 stages
+//     between barriers (R = 256: two barriers, not eight);
+//   - two global loads for every stage twiddle: the limb's R column pairs or
+//     C - 1 row pairs sit in shared memory as (w, w') pairs, one 8-byte load
+//     per butterfly;
+//   - the twiddle columns re-read for every batch row: the column phase
+//     copies its tile's twiddle columns to shared memory (two planes, read
+//     32 consecutive words a warp), and the B CTAs of a tile are neighbours
+//     in the grid, so all but the first can find the columns in L2.  (A CTA
+//     that looped over the B rows, with or without prefetching the next
+//     row's tile, was as fast or up to 19 % slower on the H100 at B = 2 and
+//     8, measured on an earlier build of these kernels: the CTAs of a tile
+//     hid each other's loads better than one CTA's loop);
+//   - bank conflicts where the order bit-reverses: the column phase gathers
+//     slice row brev(p) into tile row p, so its tile is written in order and
+//     its swizzle (ColTile) only has to serve the passes; the row tile's
+//     swizzle (RowTile) also spreads a warp that walks a row in bit-reversed
+//     order (the forward's store, the inverse's load) over 32 banks.
+// Every word a CTA reads from device memory arrives by cp.async (16 bytes at
+// a time for the column tile and the twiddle columns), all of a thread's
+// copies in flight before it waits and no registers held for them; results
+// leave by 16-byte stores.
 #include "common.cuh"
 
 namespace {
@@ -234,13 +273,13 @@ __device__ __forceinline__ uint32_t twiddle(uint32_t v, const L& l, int k1,
 // psi_rev[m + brev(p mod m)].  Inverse: GS in the reverse order with
 // psi_inv_rev at the same index.  `tw_too`: the twiddle product after the
 // stages (forward) or before them (inverse), with k1 = pl (CCL = 1 only).
-template <int K, bool kForward, class L>
-__device__ __forceinline__ void col_pass(const Tile& t, const L& l, int b0,
+template <int K, bool kForward, int NT, class T, class L>
+__device__ __forceinline__ void col_pass(const T& t, const L& l, int b0,
                                          bool tw_too) {
   constexpr int E = 1 << K;
   const int C = 1 << t.lg_c;
   const int groups = 1 << (t.lg_rl + t.lg_c - K);
-  for (int g = threadIdx.x; g < groups; g += kNttThreads) {
+  for (int g = threadIdx.x; g < groups; g += NT) {
     const int c = g & (C - 1);
     const int rest = g >> t.lg_c;
     const int lo = rest & ((1 << b0) - 1);
@@ -279,12 +318,12 @@ __device__ __forceinline__ void col_pass(const Tile& t, const L& l, int b0,
 // of one row, lanes on consecutive rows (distinct banks under the swizzle).
 // Forward: DIF (natural in, bit-reversed out); inverse: DIT (bit-reversed
 // in, natural out); both with the stage table st[m - 1 + (x mod m)].
-template <int K, bool kForward, class L>
-__device__ __forceinline__ void row_pass(const Tile& t, const L& l, int b0) {
+template <int K, bool kForward, int NT, class T, class L>
+__device__ __forceinline__ void row_pass(const T& t, const L& l, int b0) {
   constexpr int E = 1 << K;
   const int Rl = 1 << t.lg_rl;
   const int groups = 1 << (t.lg_rl + t.lg_c - K);
-  for (int g = threadIdx.x; g < groups; g += kNttThreads) {
+  for (int g = threadIdx.x; g < groups; g += NT) {
     const int pl = g & (Rl - 1);
     const int rest = g >> t.lg_rl;
     const int lo = rest & ((1 << b0) - 1);
@@ -310,19 +349,20 @@ __device__ __forceinline__ void row_pass(const Tile& t, const L& l, int b0) {
   }
 }
 
-template <bool kForward, int K, class L>
-__device__ __forceinline__ void run_pass(bool col, const Tile& t, const L& l,
+template <bool kForward, int K, int NT, class T, class L>
+__device__ __forceinline__ void run_pass(bool col, const T& t, const L& l,
                                          int b0, bool tw_too) {
-  if (col) col_pass<K, kForward>(t, l, b0, tw_too);
-  else row_pass<K, kForward>(t, l, b0);
+  if (col) col_pass<K, kForward, NT>(t, l, b0, tw_too);
+  else row_pass<K, kForward, NT>(t, l, b0);
 }
 
 // Stages on bits [0, bits) of the column (col) or row index, in passes of
 // at most kMaxRadixLog bits of near-equal size: upwards for a DIT, downwards
 // for a DIF/GS, with a barrier after each pass.  `tw_first` / `tw_last`: the
-// twiddle product in the first / last column pass.
-template <bool kForward, class L>
-__device__ __forceinline__ void local_stages(bool col, int bits, const Tile& t,
+// twiddle product in the first / last column pass.  NT threads share a tile
+// of type T (its `at` places word x of local row pl).
+template <bool kForward, int NT = kNttThreads, class T, class L>
+__device__ __forceinline__ void local_stages(bool col, int bits, const T& t,
                                              const L& l, bool tw_first,
                                              bool tw_last) {
   static_assert(kMaxRadixLog == 4, "passes = ceil(bits / 4) below");
@@ -338,10 +378,10 @@ __device__ __forceinline__ void local_stages(bool col, int bits, const Tile& t,
     const int b0 = n * base + min(n, extra);
     const bool tw_too = (i == 0 && tw_first) || (i == passes - 1 && tw_last);
     switch (K) {
-      case 1: run_pass<kForward, 1>(col, t, l, b0, tw_too); break;
-      case 2: run_pass<kForward, 2>(col, t, l, b0, tw_too); break;
-      case 3: run_pass<kForward, 3>(col, t, l, b0, tw_too); break;
-      default: run_pass<kForward, 4>(col, t, l, b0, tw_too); break;
+      case 1: run_pass<kForward, 1, NT>(col, t, l, b0, tw_too); break;
+      case 2: run_pass<kForward, 2, NT>(col, t, l, b0, tw_too); break;
+      case 3: run_pass<kForward, 3, NT>(col, t, l, b0, tw_too); break;
+      default: run_pass<kForward, 4, NT>(col, t, l, b0, tw_too); break;
     }
     __syncthreads();
   }
@@ -577,213 +617,410 @@ int launch(const void* x, void* out, const NttTables& tabs, int B, int ell,
 
 // -- the distributed four-step's phases ---------------------------------------
 
-constexpr int kPhaseWords = 4096;          // words of a phase kernel's tile
+constexpr int kPhaseMaxSide = 4096;        // the largest R and C of a phase launch
+constexpr int kTileWords = 4096;           // words of a phase's tile, at most
+// Threads of a column phase's CTA (16 words each in a radix-16 pass of a
+// 4096-word tile) and of a row phase's (32): of 128 and 256 for each, timed
+// on the H100 at (4, 4, B, 12, N/4) blocks, these were the faster at B = 1
+// and 2 (the column's within 5 % of 128 threads at B = 8).
+constexpr int kColThreads = 256;
+constexpr int kRowThreads = 128;
 
-struct BlockGeom {
+// A column phase's tile of R rows of TC words: word w = p*TC + x of the
+// 32-word line L = w >> 5 lives at w ^ H(L), H(L) = (L >> sh) << (sh + 1)
+// masked to bits 2-4, sh = max(lg_c - 1, 0).  H moves whole 16-byte chunks
+// (the tile is loaded and stored 16 bytes at a time) and sends the line bits
+// that a warp varies in a radix-16 column pass above the pass's 16 rows onto
+// the bank bits that TC < 32 leaves constant, so a pass reaches 32 banks
+// (every access conflict-free for R = 128 and 256 at TC >= 4, by a count of
+// banks per warp).  At TC >= 32, H is 0: a warp walks along one row.
+struct ColTile {
+  uint32_t* s;
+  int lg_rl, lg_c, sh;
+  __device__ __forceinline__ int at(int p, int x) const {
+    const int w = (p << lg_c) | x;
+    return w ^ (((w >> 5 >> sh) << (sh + 1)) & 28);
+  }
+};
+
+// A row phase's tile of TR rows of C words: word x of row pl lives at
+// pl*C + (x ^ ((pl ^ (x >> sh)) & key)), sh = max(5, lg_c - 5).  The pl term
+// spreads a warp that walks down a column (the row passes, lanes on rows)
+// over 32 banks as the one-pass Tile does; the x >> sh term spreads one that
+// walks along a row in bit-reversed order (the inverse's load, the forward's
+// store), whose 32 words differ only in the bits above sh.  A tile of 16
+// rows leaves the lanes 16 rows, and one of C = 256's two passes 2-way
+// conflicts; 32-row tiles (twice the shared memory) were slower on the H100.
+struct RowTile {
+  uint32_t* s;
+  int lg_rl, lg_c, key, sh;
+  __device__ __forceinline__ int at(int pl, int x) const {
+    return (pl << lg_c) | (x ^ ((pl ^ (x >> sh)) & key));
+  }
+};
+
+// A phase launch over every block: grid (tiles * B, ell, lc * cs), each CTA
+// one tile of one batch row of one limb of one block.  The B CTAs of a tile
+// are neighbours in the grid, so they run together and all but the first
+// can find the tile's tables in L2.  Every size but B and ell is a power of
+// two and passed as its logarithm.
+struct PhaseGeom {
   long long si, sj, sb, sl;                // input strides of (i, j, b, l)
-  int cs, B, ell, limb_block;
-  long long n_loc;                         // words of one block row
+  long long n_loc;                         // words of a block row
+  int B, ell, limb_block, vec;             // vec: 16-byte global accesses
+  int lg_cs, lg_r, lg_c;                   // blocks per limb cluster, R, C
+  int lg_span, lg_tile;                    // the tiled side of a block slice (C/cs
+                                           // or R/cs) and a tile's share of it
 };
 
-struct BlockRow {
-  long long in_off, out_off;
-  int limb, j;
+struct PhaseCta {
+  int i, j, l, limb, tile, b;
 };
 
-// Block row r of the launch: r = ((i*cs + j)*B + b)*ell + l.
-__device__ __forceinline__ BlockRow block_row(long long r, const BlockGeom& g) {
-  const int l = static_cast<int>(r % g.ell);
-  long long t = r / g.ell;
-  const int b = static_cast<int>(t % g.B);
-  t /= g.B;
-  const int j = static_cast<int>(t % g.cs);
-  const int i = static_cast<int>(t / g.cs);
-  return {i * g.si + j * g.sj + b * g.sb + l * g.sl, r * g.n_loc,
-          i * g.limb_block + l, j};
+// The CTA's block, limb, tile and batch row, from its grid position.
+__device__ __forceinline__ PhaseCta phase_cta(const PhaseGeom& g) {
+  PhaseCta c;
+  c.tile = static_cast<int>(blockIdx.x) / g.B;
+  c.b = static_cast<int>(blockIdx.x) - c.tile * g.B;
+  c.l = static_cast<int>(blockIdx.y);
+  c.j = static_cast<int>(blockIdx.z) & ((1 << g.lg_cs) - 1);
+  c.i = static_cast<int>(blockIdx.z) >> g.lg_cs;
+  c.limb = c.i * g.limb_block + c.l;
+  return c;
 }
 
-__device__ __forceinline__ uint32_t add_lazy(uint32_t a, uint32_t b, uint32_t two_q) {
-  return fold(a + b, two_q);
+__device__ __forceinline__ long long in_offset(const PhaseGeom& g, const PhaseCta& c) {
+  return c.i * g.si + c.j * g.sj + c.b * g.sb + c.l * g.sl;
 }
 
-__device__ __forceinline__ uint32_t sub_lazy(uint32_t a, uint32_t b, uint32_t two_q) {
-  return fold(a + two_q - b, two_q);
+// Block row (i, j, b, l) of the contiguous (lc, cs, B, ell, n_loc) output.
+__device__ __forceinline__ long long out_offset(const PhaseGeom& g, const PhaseCta& c) {
+  const long long block = (static_cast<long long>(c.i) << g.lg_cs) | c.j;
+  return ((block * g.B + c.b) * g.ell + c.l) * g.n_loc;
 }
 
-// Forward column phase: a tile of TC columns of the block's (R, Cl) slice,
-// the column NTT (fused CT on natural input, bit-reversed result), then the
-// twiddle of the block's columns [j*Cl, (j+1)*Cl); canonical out.
-__global__ void ntt_fwd_col_kernel(const uint32_t* __restrict__ x,
-                                   uint32_t* __restrict__ out,
-                                   const uint32_t* __restrict__ col_w,
-                                   const uint32_t* __restrict__ col_ws,
-                                   const uint32_t* __restrict__ tw,
-                                   const uint32_t* __restrict__ tws,
-                                   const uint32_t* __restrict__ q_tab,
-                                   BlockGeom g, int R, int C, int Cl, int TC,
-                                   int lg_r) {
-  extern __shared__ uint32_t s[];
-  const BlockRow br = block_row(blockIdx.x, g);
-  const int c0 = blockIdx.y * TC;
-  const uint32_t q = q_tab[br.limb], two_q = q + q;
-  const uint32_t* xb = x + br.in_off;
-  const int n = R * TC;
-  for (int e = threadIdx.x; e < n; e += blockDim.x)
-    s[e] = xb[static_cast<long long>(e / TC) * Cl + c0 + e % TC];
-  __syncthreads();
-  const uint32_t* w = col_w + static_cast<long long>(br.limb) * R;
-  const uint32_t* ws = col_ws + static_cast<long long>(br.limb) * R;
-  const int half = (R / 2) * TC;
-  for (int m = 1, t = R / 2; m < R; m *= 2, t /= 2) {
-    for (int f = threadIdx.x; f < half; f += blockDim.x) {
-      const int c = f % TC, k = f / TC;
-      const int i = k / t, jj = i * 2 * t + k % t;
-      const uint32_t a = s[jj * TC + c];
-      const uint32_t bw = mul_shoup_lazy(s[(jj + t) * TC + c], w[m + i], ws[m + i], q);
-      s[jj * TC + c] = add_lazy(a, bw, two_q);
-      s[(jj + t) * TC + c] = sub_lazy(a, bw, two_q);
+// Asynchronous copies from device to shared memory (cp.async): a thread
+// issues all of its words of a tile and of its tables before it waits, and
+// they take no registers on the way.  copy_wait: this thread's copies have
+// landed (a barrier after it makes everyone's visible).
+__device__ __forceinline__ void copy_async4(uint32_t* dst, const uint32_t* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async16(uint32_t* dst, const uint32_t* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The limb's n stage pairs (w, w') to shared memory, asynchronously.
+template <int NT>
+__device__ __forceinline__ void stage_pairs(uint2* dst, const uint32_t* __restrict__ w,
+                                            const uint32_t* __restrict__ ws, int n) {
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+  for (int i = threadIdx.x; i < n; i += NT) {
+    copy_async4(d + 2 * i, w + i);
+    copy_async4(d + 2 * i + 1, ws + i);
+  }
+}
+
+// Words e .. e+3 of a tile (four per thread and step) to device memory at
+// offsets addr(e + k): one 16-byte store when vec (four words of one tile
+// row, 16-byte aligned), else word by word, words from `words` on skipped.
+template <class A>
+__device__ __forceinline__ void tile_store4(const uint32_t (&v)[4], uint32_t* __restrict__ dst,
+                                            int e, int words, bool vec, A addr) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(dst + addr(e)) = make_uint4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (e + k < words) dst[addr(e + k)] = v[k];
+}
+
+// A column phase's limb: its column pairs and, in shared memory, the tile's
+// twiddle columns as two planes (w, w') of R x TC words.
+struct ColLimb : Limb<true> {
+  const uint32_t *tw_w, *tw_s;
+  int lg_tc;
+};
+
+// The twiddle product of a column phase (col_pass with tw_too): forward
+// psi^{(2k1+1)n2}, inverse psi^{-(2k1+1)n2}, from the staged planes (a warp
+// reads 32 consecutive words of each).
+template <bool kForward>
+__device__ __forceinline__ uint32_t twiddle(uint32_t v, const ColLimb& l, int k1, int c,
+                                            int) {
+  const int i = (k1 << l.lg_tc) | c;
+  return mul_shoup_lazy(v, l.tw_w[i], l.tw_s[i], l.q);
+}
+
+// Column phases: a tile of TC columns of a block's (R, Cl = C/cs) slice for
+// the R-point column transform, the one-pass kernel's column half at one CTA
+// per limb (col_pass: up to 16 words a thread, four stages per barrier).
+//   forward: tile row p <- slice row n1 = brev(p), DIT -> natural k1 = p,
+//            times the twiddle of columns j*Cl + c0 + c on the way out (in
+//            the last pass it would cost 64 registers' worth of spills);
+//   inverse: tile row p <- slice row k1 = p, times the inverse twiddle in
+//            the first pass (col_pass's tw_too), GS -> n1 = brev(p), times
+//            R^-1 on the way out to row brev(p).
+// Every word the CTA reads from device memory arrives by cp.async: the
+// limb's R column pairs, the tile's twiddle columns and the tile.
+template <bool kForward>
+__global__ void __launch_bounds__(kColThreads, 1024 / kColThreads)
+ntt_col_phase_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                     const uint32_t* __restrict__ col_w, const uint32_t* __restrict__ col_ws,
+                     const uint32_t* __restrict__ tw, const uint32_t* __restrict__ tws,
+                     const uint32_t* __restrict__ scale, const uint32_t* __restrict__ scale_s,
+                     const uint32_t* __restrict__ q_tab, PhaseGeom g) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const PhaseCta c = phase_cta(g);
+  constexpr int NT = kColThreads;
+  const int lg_r = g.lg_r, lg_tc = g.lg_tile, TC = 1 << lg_tc;
+  const int words = 1 << (lg_r + lg_tc);
+  uint32_t* tw_w = smem + words;
+  uint32_t* tw_s = tw_w + words;
+  uint2* pairs = reinterpret_cast<uint2*>(tw_s + words);
+  const long long limb = c.limb;
+  const int c0 = c.tile << lg_tc;
+  const ColTile t{smem, lg_r, lg_tc, max(lg_tc - 1, 0)};
+  // word e of the tile: its row p, column c0 + (e mod TC) of slice row p
+  // (natural) or brev(p)
+  const auto natural = [&](int e) {
+    return (static_cast<long long>(e >> lg_tc) << g.lg_span) + c0 + (e & (TC - 1));
+  };
+  const auto reversed = [&](int e) {
+    return (static_cast<long long>(brev(e >> lg_tc, lg_r)) << g.lg_span) + c0 +
+           (e & (TC - 1));
+  };
+  stage_pairs<NT>(pairs, col_w + (limb << lg_r), col_ws + (limb << lg_r), 1 << lg_r);
+  {
+    // the tile's twiddle columns: rows k1 of the limb's (R, C) table,
+    // columns j*Cl + c0 ...
+    const long long base = (limb << (lg_r + g.lg_c)) +
+                           (static_cast<long long>(c.j) << g.lg_span) + c0;
+    const int step = g.vec ? 4 : 1;
+    for (int e = step * threadIdx.x; e < words; e += step * NT) {
+      const long long off = base + (static_cast<long long>(e >> lg_tc) << g.lg_c) + (e & (TC - 1));
+      if (g.vec) {
+        copy_async16(tw_w + e, tw + off);
+        copy_async16(tw_s + e, tws + off);
+      } else {
+        copy_async4(tw_w + e, tw + off);
+        copy_async4(tw_s + e, tws + off);
+      }
     }
-    __syncthreads();
   }
-  const long long tw0 = static_cast<long long>(br.limb) * R * C +
-                        static_cast<long long>(br.j) * Cl + c0;
-  uint32_t* ob = out + br.out_off;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int k1 = e / TC, c = e % TC;
-    const long long off = tw0 + static_cast<long long>(k1) * C + c;
-    const uint32_t v = mul_shoup_lazy(s[brev(k1, lg_r) * TC + c], tw[off], tws[off], q);
-    ob[static_cast<long long>(k1) * Cl + c0 + c] = reduce_once(v, q);
-  }
-}
-
-// Row phases: a tile of TR rows of the block's (Rl, C) slice, loaded
-// bit-reversed, the C-point cyclic DIT with the stage-major table (the
-// inverse's: then C^-1); canonical out, rows in place.
-template <bool kInverse>
-__global__ void ntt_row_kernel(const uint32_t* __restrict__ x,
-                               uint32_t* __restrict__ out,
-                               const uint32_t* __restrict__ st,
-                               const uint32_t* __restrict__ sts,
-                               const uint32_t* __restrict__ c_inv,
-                               const uint32_t* __restrict__ c_inv_s,
-                               const uint32_t* __restrict__ q_tab,
-                               BlockGeom g, int C, int TR, int lg_c) {
-  extern __shared__ uint32_t s[];
-  const BlockRow br = block_row(blockIdx.x, g);
-  const long long base = static_cast<long long>(blockIdx.y) * TR * C;
-  const uint32_t q = q_tab[br.limb], two_q = q + q;
-  const uint32_t* xb = x + br.in_off + base;
-  const int n = TR * C;
-  for (int e = threadIdx.x; e < n; e += blockDim.x)
-    s[(e / C) * C + brev(e % C, lg_c)] = xb[e];
-  __syncthreads();
-  const uint32_t* w = st + static_cast<long long>(br.limb) * (C - 1);
-  const uint32_t* ws = sts + static_cast<long long>(br.limb) * (C - 1);
-  const int hc = C / 2, half = TR * hc;
-  for (int m = 1; m < C; m *= 2) {
-    for (int f = threadIdx.x; f < half; f += blockDim.x) {
-      const int r = f / hc, k = f % hc;
-      const int i = k % m, jj = (k / m) * 2 * m + i;
-      uint32_t* row = s + r * C;
-      const uint32_t a = row[jj];
-      const uint32_t bw = mul_shoup_lazy(row[jj + m], w[m - 1 + i], ws[m - 1 + i], q);
-      row[jj] = add_lazy(a, bw, two_q);
-      row[jj + m] = sub_lazy(a, bw, two_q);
-    }
-    __syncthreads();
-  }
-  uint32_t* ob = out + br.out_off + base;
-  if (kInverse) {
-    const uint32_t ci = c_inv[br.limb], cis = c_inv_s[br.limb];
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      ob[e] = reduce_once(mul_shoup_lazy(s[e], ci, cis, q), q);
+  const uint32_t* src = x + in_offset(g, c);
+  if (g.vec) {
+    for (int e = 4 * threadIdx.x; e < words; e += 4 * NT)
+      copy_async16(t.s + t.at(e >> lg_tc, e & (TC - 1)), src + (kForward ? reversed(e) : natural(e)));
   } else {
-    for (int e = threadIdx.x; e < n; e += blockDim.x) ob[e] = reduce_once(s[e], q);
+    for (int e = threadIdx.x; e < words; e += NT)
+      copy_async4(t.s + t.at(e >> lg_tc, e & (TC - 1)), src + (kForward ? reversed(e) : natural(e)));
   }
-}
-
-// Inverse column phase: a tile of TC columns of the block's (R, Cl) slice,
-// times the inverse twiddle of the block's columns on the way in (stored
-// bit-reversed), the column iNTT (fused GS), then R^-1; canonical out.
-__global__ void ntt_inv_col_kernel(const uint32_t* __restrict__ x,
-                                   uint32_t* __restrict__ out,
-                                   const uint32_t* __restrict__ col_wi,
-                                   const uint32_t* __restrict__ col_wis,
-                                   const uint32_t* __restrict__ twi,
-                                   const uint32_t* __restrict__ twis,
-                                   const uint32_t* __restrict__ r_inv,
-                                   const uint32_t* __restrict__ r_inv_s,
-                                   const uint32_t* __restrict__ q_tab,
-                                   BlockGeom g, int R, int C, int Cl, int TC,
-                                   int lg_r) {
-  extern __shared__ uint32_t s[];
-  const BlockRow br = block_row(blockIdx.x, g);
-  const int c0 = blockIdx.y * TC;
-  const uint32_t q = q_tab[br.limb], two_q = q + q;
-  const uint32_t* xb = x + br.in_off;
-  const long long tw0 = static_cast<long long>(br.limb) * R * C +
-                        static_cast<long long>(br.j) * Cl + c0;
-  const int n = R * TC;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const int k1 = e / TC, c = e % TC;
-    const long long off = tw0 + static_cast<long long>(k1) * C + c;
-    s[brev(k1, lg_r) * TC + c] =
-        mul_shoup_lazy(xb[static_cast<long long>(k1) * Cl + c0 + c], twi[off], twis[off], q);
-  }
+  ColLimb l{};
+  l.col = l.row = pairs;
+  l.q = __ldg(q_tab + limb);
+  l.two_q = l.q + l.q;
+  l.tw_w = tw_w;
+  l.tw_s = tw_s;
+  l.lg_tc = lg_tc;
+  const uint32_t sc = kForward ? 0u : __ldg(scale + limb);
+  const uint32_t sc_s = kForward ? 0u : __ldg(scale_s + limb);
+  copy_wait();
   __syncthreads();
-  const uint32_t* w = col_wi + static_cast<long long>(br.limb) * R;
-  const uint32_t* ws = col_wis + static_cast<long long>(br.limb) * R;
-  const int half = (R / 2) * TC;
-  for (int m = R, t = 1; m > 1; m /= 2, t *= 2) {
-    const int h = m / 2;
-    for (int f = threadIdx.x; f < half; f += blockDim.x) {
-      const int c = f % TC, k = f / TC;
-      const int i = k / t, jj = i * 2 * t + k % t;
-      const uint32_t a = s[jj * TC + c], v = s[(jj + t) * TC + c];
-      s[jj * TC + c] = add_lazy(a, v, two_q);
-      s[(jj + t) * TC + c] = mul_shoup_lazy(sub_lazy(a, v, two_q), w[h + i], ws[h + i], q);
+  local_stages<kForward, NT>(true, lg_r, t, l, !kForward, false);
+  uint32_t* dst = out + out_offset(g, c);
+  for (int e = 4 * threadIdx.x; e < words; e += 4 * NT) {
+    uint32_t v[4];
+    if (g.vec) {                           // a 16-byte chunk of the tile and planes
+      const uint4 u = *reinterpret_cast<const uint4*>(t.s + t.at(e >> lg_tc, e & (TC - 1)));
+      v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = e + k < words ? t.s[t.at((e + k) >> lg_tc, (e + k) & (TC - 1))] : 0u;
     }
-    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = reduce_once(kForward ? mul_shoup_lazy(v[k], tw_w[e + k], tw_s[e + k], l.q)
+                                  : mul_shoup_lazy(v[k], sc, sc_s, l.q), l.q);
+    if (kForward) tile_store4(v, dst, e, words, g.vec, natural);
+    else tile_store4(v, dst, e, words, g.vec, reversed);
   }
-  const uint32_t ri = r_inv[br.limb], ris = r_inv_s[br.limb];
-  uint32_t* ob = out + br.out_off;
-  for (int e = threadIdx.x; e < n; e += blockDim.x)
-    ob[static_cast<long long>(e / TC) * Cl + c0 + e % TC] =
-        reduce_once(mul_shoup_lazy(s[e], ri, ris, q), q);
 }
 
-// The launch geometry of a phase: grid (block rows, tiles of one block).
-struct PhasePlan {
+// Row phases: a tile of TR rows of a block's (R/cs, C) slice, contiguous in
+// device memory, for the C-point cyclic row DFT, the one-pass kernel's row
+// half (row_pass, lanes on rows).  Forward: DIF on natural input, the
+// bit-reversed result read back in order at the store.  Inverse: the input
+// stored bit-reversed, DIT to natural order, then C^-1.  The limb's C - 1
+// stage pairs and the tile arrive by cp.async.
+template <bool kForward, int kLgC, int kLgTr>
+__global__ void __launch_bounds__(kRowThreads, 1024 / kRowThreads)
+ntt_row_phase_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                     const uint32_t* __restrict__ st, const uint32_t* __restrict__ sts,
+                     const uint32_t* __restrict__ scale, const uint32_t* __restrict__ scale_s,
+                     const uint32_t* __restrict__ q_tab, PhaseGeom g) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const PhaseCta c = phase_cta(g);
+  constexpr int NT = kRowThreads;
+  // the geometry, compile-time where the kernel is built for it (kLgC > 0)
+  const int lg_c = kLgC ? kLgC : g.lg_c, lg_tr = kLgC ? kLgTr : g.lg_tile, C = 1 << lg_c;
+  const int lg_words = lg_tr + lg_c, words = 1 << lg_words;
+  uint2* pairs = reinterpret_cast<uint2*>(smem + words);
+  const long long limb = c.limb;
+  const RowTile t{smem, lg_tr, lg_c, min(C, 32) - 1, max(5, lg_c - 5)};
+  const long long base = static_cast<long long>(c.tile) << lg_words;
+  stage_pairs<NT>(pairs, st + limb * (C - 1), sts + limb * (C - 1), C - 1);
+  const uint32_t* src = x + in_offset(g, c) + base;
+  for (int e = threadIdx.x; e < words; e += NT) {
+    const int xc = e & (C - 1);
+    copy_async4(t.s + t.at(e >> lg_c, kForward ? xc : brev(xc, lg_c)), src + e);
+  }
+  Limb<true> l{};
+  l.col = l.row = pairs;
+  l.q = __ldg(q_tab + limb);
+  l.two_q = l.q + l.q;
+  const uint32_t sc = kForward ? 0u : __ldg(scale + limb);
+  const uint32_t sc_s = kForward ? 0u : __ldg(scale_s + limb);
+  copy_wait();
+  __syncthreads();
+  local_stages<kForward, NT>(false, lg_c, t, l, false, false);
+  uint32_t* dst = out + out_offset(g, c) + base;
+  const auto contiguous = [](int e) { return static_cast<long long>(e); };
+  for (int e = 4 * threadIdx.x; e < words; e += 4 * NT) {
+    uint32_t v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (e + k >= words) break;
+      const int xc = (e + k) & (C - 1);
+      const uint32_t u = t.s[t.at((e + k) >> lg_c, kForward ? brev(xc, lg_c) : xc)];
+      v[k] = reduce_once(kForward ? u : mul_shoup_lazy(u, sc, sc_s, l.q), l.q);
+    }
+    tile_store4(v, dst, e, words, g.vec, contiguous);
+  }
+}
+
+// A checked phase launch: its geometry, grid and dynamic shared memory.
+struct PhaseLaunch {
   bool ok;
-  BlockGeom g;
-  long long rows;
-  int tiles, tile;                         // tiles per block row, TC or TR
+  PhaseGeom g;
+  dim3 grid;
+  int smem;
 };
 
-PhasePlan phase_plan(bool column, long long si, long long sj, long long sb,
-                     long long sl, int lc, int cs, int B, int ell,
-                     int limb_block, int R, int C) {
-  PhasePlan p{};
-  const bool pow2 = R >= 2 && C >= 2 && (R & (R - 1)) == 0 && (C & (C - 1)) == 0;
-  p.ok = pow2 && lc > 0 && cs > 0 && B > 0 && ell > 0 && R % cs == 0 &&
-         C % cs == 0 && R <= kPhaseWords && C <= kPhaseWords &&
-         limb_block >= 0 && (limb_block == 0 || limb_block == ell);
-  if (!p.ok) return p;
-  const int width = column ? C / cs : C;   // words of a tile's row
-  const int height = column ? R : R / cs;  // rows of the block
-  if (column) {
-    p.tile = width < kPhaseWords / R ? width : kPhaseWords / R;
-    p.tiles = width / p.tile;
-  } else {
-    const int tr = kPhaseWords / C;
-    p.tile = height < tr ? height : tr;
-    p.tiles = height / p.tile;
-  }
-  p.rows = static_cast<long long>(lc) * cs * B * ell;
-  p.ok = p.rows <= 0x7fffffffLL && p.tiles <= 65535;
-  p.g = {si, sj, sb, sl, cs, B, ell, limb_block,
-         static_cast<long long>(R) * C / cs};
+bool pow2(long long v) { return v >= 1 && (v & (v - 1)) == 0; }
+
+// The launch of a phase at the wrapper's plan (tile: TC columns of a column
+// slice or TR rows of a row slice), or ok = false where the shapes or the
+// plan do not fit.
+PhaseLaunch phase_launch(bool column, const void* x, const void* out,
+                         const void* tw, const void* tws, long long si,
+                         long long sj, long long sb, long long sl, int lc, int cs,
+                         int B, int ell, int limb_block, int R, int C, int tile) {
+  PhaseLaunch p{};
+  if (!(pow2(R) && pow2(C) && R >= 2 && C >= 2 && R <= kPhaseMaxSide &&
+        C <= kPhaseMaxSide && pow2(cs) && R % cs == 0 && C % cs == 0 && lc > 0 &&
+        B > 0 && ell > 0 && (limb_block == 0 || limb_block == ell)))
+    return p;
+  const int span = column ? C / cs : R / cs;        // the tiled side of a block slice
+  const int other = column ? R : C;
+  const long long words = static_cast<long long>(other) * tile;
+  if (!(pow2(tile) && tile <= span && words <= kTileWords))
+    return p;
+  const long long ctas = static_cast<long long>(span / tile) * B;
+  if (ctas > 0x7fffffffLL || ell > 65535 || static_cast<long long>(lc) * cs > 65535)
+    return p;
+  p.smem = static_cast<int>(column ? words * 12 + other * 8LL : words * 4 + (C - 1) * 8LL);
+  if (p.smem > repro::kMaxSmemPerCta) return p;
+  const long long n_loc = static_cast<long long>(R) * C / cs;
+  const bool vec = (column ? tile % 4 == 0 : C % 4 == 0) && n_loc % 4 == 0 &&
+                   si % 4 == 0 && sj % 4 == 0 && sb % 4 == 0 && sl % 4 == 0 &&
+                   repro::aligned16(x) && repro::aligned16(out) &&
+                   repro::aligned16(tw) && repro::aligned16(tws);
+  p.g = {si, sj, sb, sl, n_loc, B, ell, limb_block, vec ? 1 : 0,
+         log2i(cs), log2i(R), log2i(C), log2i(span), log2i(tile)};
+  p.grid = dim3(static_cast<unsigned>(ctas), static_cast<unsigned>(ell),
+                static_cast<unsigned>(lc * cs));
+  p.ok = true;
   return p;
+}
+
+// The dynamic shared memory a phase kernel may take on each device so far.
+struct SmemAllowance {
+  int bytes[repro::kMaxDevices];
+};
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, SmemAllowance& a, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= repro::kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > a.bytes[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    a.bytes[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
+template <bool kForward>
+int col_phase(const void* x, void* out, const void* col_w, const void* col_ws,
+              const void* tw, const void* tws, const void* scale, const void* scale_s,
+              const void* q, long long si, long long sj, long long sb, long long sl,
+              int lc, int cs, int B, int ell, int limb_block, int R, int C, int tile,
+              void* stream) {
+  const PhaseLaunch p = phase_launch(true, x, out, tw, tws, si, sj, sb, sl, lc, cs, B, ell,
+                                     limb_block, R, C, tile);
+  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = ntt_col_phase_kernel<kForward>;
+  static SmemAllowance allowance;
+  cudaError_t err = allow_smem(kernel, allowance, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p.grid, kColThreads, static_cast<size_t>(p.smem),
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(col_w), static_cast<const uint32_t*>(col_ws),
+      static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(tws),
+      static_cast<const uint32_t*>(scale), static_cast<const uint32_t*>(scale_s),
+      static_cast<const uint32_t*>(q), p.g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A row phase at C = 256 with 16-row tiles (N = 2^16 at every block size)
+// runs the kernel built for that geometry: its passes' indices fold to
+// constants (4-19 % faster than the general build on the H100 at B = 1, 2
+// and 8).
+template <bool kForward>
+int row_phase(const void* x, void* out, const void* st, const void* sts,
+              const void* scale, const void* scale_s, const void* q, long long si,
+              long long sj, long long sb, long long sl, int lc, int cs, int B, int ell,
+              int limb_block, int R, int C, int tile, void* stream) {
+  const PhaseLaunch p = phase_launch(false, x, out, nullptr, nullptr, si, sj, sb, sl, lc, cs,
+                                     B, ell, limb_block, R, C, tile);
+  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
+  const bool built = p.g.lg_c == 8 && p.g.lg_tile == 4;
+  const auto kernel = built ? ntt_row_phase_kernel<kForward, 8, 4>
+                            : ntt_row_phase_kernel<kForward, 0, 0>;
+  static SmemAllowance allowance[2];
+  cudaError_t err = allow_smem(kernel, allowance[built], p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p.grid, kRowThreads, static_cast<size_t>(p.smem),
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(st), static_cast<const uint32_t*>(sts),
+      static_cast<const uint32_t*>(scale), static_cast<const uint32_t*>(scale_s),
+      static_cast<const uint32_t*>(q), p.g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -828,67 +1065,34 @@ extern "C" int ntt_inv_launch(const void* x, void* out, const void* col_wi,
 // The distributed four-step's phases on the blocks of a (limb, coef) mesh:
 // x read through the strides (si, sj, sb, sl) of its (i, j, b, l) dims, the
 // n_loc = R*C/cs words of a block row contiguous; out (lc, cs, B, ell,
-// n_loc) contiguous.  Tables as in the header note, each phase its own.
-#define PHASE_ARGS long long si, long long sj, long long sb, long long sl, \
-    int lc, int cs, int B, int ell, int limb_block, int R, int C, void* stream
+// n_loc) contiguous.  Tables as in the header note, each phase its own;
+// tile the wrapper's plan (repro_torch.kernels.ntt.ops.phase_plan).
+#define PHASE_ARGS long long si, long long sj, long long sb, long long sl, int lc, \
+    int cs, int B, int ell, int limb_block, int R, int C, int tile, void* stream
+#define PHASE_PASS si, sj, sb, sl, lc, cs, B, ell, limb_block, R, C, tile, stream
 
 extern "C" int ntt_fwd_col_launch(const void* x, void* out, const void* col_w,
                                   const void* col_ws, const void* tw,
                                   const void* tws, const void* q, PHASE_ARGS) {
-  const PhasePlan p = phase_plan(true, si, sj, sb, sl, lc, cs, B, ell, limb_block, R, C);
-  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
-  ntt_fwd_col_kernel<<<dim3(static_cast<unsigned>(p.rows), p.tiles), repro::kThreads,
-                       static_cast<size_t>(R) * p.tile * 4,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(col_w), static_cast<const uint32_t*>(col_ws),
-      static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(tws),
-      static_cast<const uint32_t*>(q), p.g, R, C, C / cs, p.tile, log2i(R));
-  return static_cast<int>(cudaGetLastError());
+  return col_phase<true>(x, out, col_w, col_ws, tw, tws, nullptr, nullptr, q, PHASE_PASS);
 }
 
 extern "C" int ntt_fwd_row_launch(const void* x, void* out, const void* st,
                                   const void* sts, const void* q, PHASE_ARGS) {
-  const PhasePlan p = phase_plan(false, si, sj, sb, sl, lc, cs, B, ell, limb_block, R, C);
-  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
-  ntt_row_kernel<false><<<dim3(static_cast<unsigned>(p.rows), p.tiles), repro::kThreads,
-                          static_cast<size_t>(C) * p.tile * 4,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(st), static_cast<const uint32_t*>(sts),
-      nullptr, nullptr, static_cast<const uint32_t*>(q), p.g, C, p.tile, log2i(C));
-  return static_cast<int>(cudaGetLastError());
+  return row_phase<true>(x, out, st, sts, nullptr, nullptr, q, PHASE_PASS);
 }
 
 extern "C" int ntt_inv_row_launch(const void* x, void* out, const void* sti,
                                   const void* stis, const void* c_inv,
                                   const void* c_inv_s, const void* q, PHASE_ARGS) {
-  const PhasePlan p = phase_plan(false, si, sj, sb, sl, lc, cs, B, ell, limb_block, R, C);
-  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
-  ntt_row_kernel<true><<<dim3(static_cast<unsigned>(p.rows), p.tiles), repro::kThreads,
-                         static_cast<size_t>(C) * p.tile * 4,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(sti), static_cast<const uint32_t*>(stis),
-      static_cast<const uint32_t*>(c_inv), static_cast<const uint32_t*>(c_inv_s),
-      static_cast<const uint32_t*>(q), p.g, C, p.tile, log2i(C));
-  return static_cast<int>(cudaGetLastError());
+  return row_phase<false>(x, out, sti, stis, c_inv, c_inv_s, q, PHASE_PASS);
 }
 
 extern "C" int ntt_inv_col_launch(const void* x, void* out, const void* col_wi,
                                   const void* col_wis, const void* twi,
                                   const void* twis, const void* r_inv,
                                   const void* r_inv_s, const void* q, PHASE_ARGS) {
-  const PhasePlan p = phase_plan(true, si, sj, sb, sl, lc, cs, B, ell, limb_block, R, C);
-  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
-  ntt_inv_col_kernel<<<dim3(static_cast<unsigned>(p.rows), p.tiles), repro::kThreads,
-                       static_cast<size_t>(R) * p.tile * 4,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<const uint32_t*>(col_wi), static_cast<const uint32_t*>(col_wis),
-      static_cast<const uint32_t*>(twi), static_cast<const uint32_t*>(twis),
-      static_cast<const uint32_t*>(r_inv), static_cast<const uint32_t*>(r_inv_s),
-      static_cast<const uint32_t*>(q), p.g, R, C, C / cs, p.tile, log2i(R));
-  return static_cast<int>(cudaGetLastError());
+  return col_phase<false>(x, out, col_wi, col_wis, twi, twis, r_inv, r_inv_s, q, PHASE_PASS);
 }
+#undef PHASE_PASS
 #undef PHASE_ARGS

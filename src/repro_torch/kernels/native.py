@@ -52,10 +52,10 @@ SIGNATURES = {
     "ntt": {
         "ntt_fwd_launch": [_P] * 9 + [_I] * 6 + [_P],
         "ntt_inv_launch": [_P] * 13 + [_I] * 6 + [_P],
-        "ntt_fwd_col_launch": [_P] * 7 + [_LL] * 4 + [_I] * 7 + [_P],
-        "ntt_fwd_row_launch": [_P] * 5 + [_LL] * 4 + [_I] * 7 + [_P],
-        "ntt_inv_row_launch": [_P] * 7 + [_LL] * 4 + [_I] * 7 + [_P],
-        "ntt_inv_col_launch": [_P] * 9 + [_LL] * 4 + [_I] * 7 + [_P],
+        "ntt_fwd_col_launch": [_P] * 7 + [_LL] * 4 + [_I] * 8 + [_P],
+        "ntt_fwd_row_launch": [_P] * 5 + [_LL] * 4 + [_I] * 8 + [_P],
+        "ntt_inv_row_launch": [_P] * 7 + [_LL] * 4 + [_I] * 8 + [_P],
+        "ntt_inv_col_launch": [_P] * 9 + [_LL] * 4 + [_I] * 8 + [_P],
     },
 }
 

@@ -13,10 +13,13 @@ cache gives :func:`cluster_plan`).
 :func:`ntt_phase` runs one phase of the distributed four-step
 (:mod:`repro_torch.core.distributed`) on every block of a mesh at once: the
 forward column phase, the forward row phase, the inverse row phase or the
-inverse column phase (``csrc/ntt.cu``: ``ntt_fwd_col_kernel`` …, one launch
-per phase; on CPU tensors the phases of :mod:`repro_torch.core.ntt`).
+inverse column phase (``csrc/ntt.cu``: ``ntt_col_phase_kernel`` and
+``ntt_row_phase_kernel``, one launch per phase at :func:`phase_plan`'s tile;
+on CPU tensors the phases of :mod:`repro_torch.core.ntt`).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -171,6 +174,64 @@ def ntt_cuda(x: torch.Tensor, fc: nttm.FourStepConsts, forward: bool,
 
 #: The four phases, in the order a forward then an inverse transform runs them.
 PHASES = ("fwd_col", "fwd_row", "inv_row", "inv_col")
+#: The phase kernels' limits (``csrc/ntt.cu``): R and C at most, and the words
+#: of a tile (R × TC for a column phase, TR × C for a row phase).
+PHASE_MAX_SIDE = 4096
+TILE_WORDS = 4096
+#: An H100's SM count, the default of :func:`phase_plan`'s ``sms``.
+H100_SMS = 132
+
+
+class PhasePlan(NamedTuple):
+    """How a phase kernel cuts its launch: ``tile`` columns (column phases,
+    TC) or rows (row phases, TR) of a block slice per CTA, each CTA one tile
+    of one batch row of one limb of one block (the B CTAs of a tile next to
+    each other in the grid, so all but the first can find its tables in L2);
+    ``ctas`` in all; ``smem`` dynamic shared bytes per CTA (the tile, and for
+    a column phase its twiddle columns in two planes and the R column pairs,
+    for a row phase the C − 1 stage pairs)."""
+    tile: int
+    ctas: int
+    smem: int
+
+
+def phase_plan(phase: str, lc: int, cs: int, B: int, ell: int, R: int, C: int,
+               sms: int = H100_SMS) -> PhasePlan:
+    """The phase kernel's plan for (lc, cs, B, ℓ) blocks of an R × C split.
+
+    The widest tile that fits (:data:`TILE_WORDS`); where that leaves fewer
+    than ``sms`` CTAs, the tile narrowed down to 4 columns or rows (a column
+    tile's rows stay 16-byte copies; a row tile of 4 × 256 words keeps half
+    of its 128 threads busy in a radix-16 pass) until the launch fills the
+    SMs or cannot be cut further.  Raises where the launcher refuses the
+    shapes."""
+    col = phase.endswith("col")
+    if phase not in PHASES:
+        raise ValueError(f"unknown NTT phase {phase!r} — one of {PHASES}")
+    pow2 = all(v >= 1 and v & (v - 1) == 0 for v in (R, C, cs))
+    if not (pow2 and 2 <= R <= PHASE_MAX_SIDE and 2 <= C <= PHASE_MAX_SIDE
+            and R % cs == 0 and C % cs == 0 and min(lc, B, ell) > 0
+            and ell <= 65535 and lc * cs <= 65535):
+        raise ValueError(f"ntt_phase {phase}: no launch for ({lc}, {cs}, {B}, {ell}) "
+                         f"blocks of {R}×{C}")
+    span, other = (C // cs, R) if col else (R // cs, C)
+    tile = min(span, max(1, TILE_WORDS // other))
+    least = min(tile, 4)
+    while lc * cs * ell * B * (span // tile) < sms and tile > least:
+        tile //= 2
+    words = other * tile
+    smem = 4 * (3 * words + 2 * R) if col else 4 * (words + 2 * (C - 1))
+    return PhasePlan(tile, lc * cs * ell * B * (span // tile), smem)
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
+
+
+_sms: dict[int, int] = {}
 
 
 def _phase_shape(x: torch.Tensor, fc: nttm.FourStepConsts,
@@ -278,8 +339,9 @@ def ntt_phase_plain(x: torch.Tensor, fc: nttm.FourStepConsts, phase: str,
 
 def ntt_phase_cuda(x: torch.Tensor, fc: nttm.FourStepConsts, phase: str,
                    limb_block: int) -> torch.Tensor:
-    """Launch the phase kernel (``csrc/ntt.cu``): one launch over every
-    block, which reads ``x`` through its strides."""
+    """Launch the phase kernel (``csrc/ntt.cu``) at :func:`phase_plan`'s
+    plan: one launch over every block, which reads ``x`` through its
+    strides."""
     _phase_shape(x, fc, phase)
     if x.stride(-1) != 1:
         x = x.contiguous()
@@ -295,6 +357,7 @@ def ntt_phase_cuda(x: torch.Tensor, fc: nttm.FourStepConsts, phase: str,
     native.require({f"table {i}": t for i, t in enumerate(tabs)}, torch.int32,
                    x.device)
     lc, cs, B, ell = x.shape[:4]
+    plan = phase_plan(phase, lc, cs, B, ell, fc.R, fc.C, _sm_count(x.device))
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     launch = getattr(native.lib("ntt"), f"ntt_{phase}_launch")
     name = f"ntt_{phase}"
@@ -302,7 +365,7 @@ def ntt_phase_cuda(x: torch.Tensor, fc: nttm.FourStepConsts, phase: str,
     with native.on_device(x):
         err = launch(x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tabs),
                      *x.stride()[:4], lc, cs, B, ell, limb_block, fc.R, fc.C,
-                     native.stream_of(x))
+                     plan.tile, native.stream_of(x))
     native.check("ntt", err, name)
     config.count_launch("ntt", name)
     return out

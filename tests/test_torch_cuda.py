@@ -788,22 +788,39 @@ def dist_R(cs, n=DIST_N):
     return D.DistContext(ClusterMap(1, cs, 1, cs), None).submodules(n)
 
 
+# (N, limb clusters, B, ℓ per cluster) of the phase kernels' card cases: the
+# paper's hmult operands (B = 2), one poly, the served wave's width of 8, the
+# non-square split R = 256, C = 128 of N = 2¹⁵, and one limb of one poly on
+# one limb cluster, whose launch has fewer CTAs than the card has SMs
+PHASE_SHAPES = {"B2": (DIST_N, 4, 2, 12), "B1": (DIST_N, 4, 1, 12),
+                "B8": (DIST_N, 4, 8, 12), "N2^15": (DIST_N // 2, 4, 2, 12),
+                "small_grid": (DIST_N, 1, 1, 1)}
+
+
+@pytest.mark.parametrize("shape", PHASE_SHAPES)
 @pytest.mark.parametrize("sharded", [True, False])
 @pytest.mark.parametrize("phase", ntt_ops.PHASES)
 @pytest.mark.parametrize("cs", DIST_CS)
-def test_ntt_phase_kernels_at_shard_shapes(dev, cs, phase, sharded):
+def test_ntt_phase_kernels_at_shard_shapes(dev, cs, phase, sharded, shape):
     """Each phase kernel of the distributed four-step against its plain
-    version on the blocks of a (4, cs) mesh at N = 2¹⁶, ℓ = 48, B = 2: the
-    limbs split over the limb clusters (read as a strided view of the global
-    tensor) or replicated (a stride-0 view); one launch each."""
+    version on the blocks of an (lc, cs) mesh (:data:`PHASE_SHAPES`; at
+    "B2" N = 2¹⁶, ℓ = 48, B = 2): the limbs split over the limb clusters
+    (read as a strided view of the global tensor) or replicated (a stride-0
+    view); one launch each, at :func:`ntt_ops.phase_plan`'s plan."""
     from repro_torch.core import distributed as D
-    R = dist_R(cs)
-    basis = tuple(rns.gen_ntt_primes(48, DIST_N))
-    fc = const_cache.device_four_step_consts(basis, DIST_N, R, dev)
-    x = pl.to_tensor(residue_words(basis, (2,), DIST_N, seed=cs), dev)
-    mesh = D.Mesh(4, cs, dev)
+    n, lc, B, ell_loc = PHASE_SHAPES[shape]
+    R = dist_R(cs, n)
+    ell = lc * ell_loc
+    basis = tuple(rns.gen_ntt_primes(ell, n))
+    fc = const_cache.device_four_step_consts(basis, n, R, dev)
+    x = pl.to_tensor(residue_words(basis, (B,), n, seed=cs), dev)
+    mesh = D.Mesh(lc, cs, dev)
     blocks = mesh.place(x, sharded)
-    limb_block = 12 if sharded else 0
+    limb_block = ell_loc if sharded else 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ntt_ops.phase_plan(phase, lc, cs, B, blocks.shape[3], R, n // R, sms)
+    if shape == "small_grid":
+        assert plan.ctas < sms
     config.reset_launches()
     got = ntt_ops.ntt_phase(blocks, fc, phase, limb_block)
     assert config.kernel_launch_counts() == {f"ntt_{phase}": 1}

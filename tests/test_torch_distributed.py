@@ -423,6 +423,44 @@ def test_ntt_phases_compose_to_the_transform(cs):
     assert mesh.executed() == ({"all_to_all": 2} if cs > 1 else {})
 
 
+@pytest.mark.parametrize("phase", ntt_ops.PHASES)
+@pytest.mark.parametrize("cs", [1, 2, 4, 8, 16])
+def test_phase_plan_fits_the_launcher(cs, phase):
+    """The phase kernels' host plan at the engine's R for N = 2⁸ … 2¹⁶: the
+    tile is a power of two that divides the block slice's tiled side and
+    fits its word budget, the shared memory fits a CTA's 227 KB, one CTA per
+    tile and batch row, and a launch that leaves SMs idle has been cut as
+    far as it goes; shapes the launcher refuses are refused."""
+    col = phase.endswith("col")
+    for log_n in range(8, 17):
+        N = 1 << log_n
+        R = D.DistContext(ClusterMap(1, cs, 1, cs), None).submodules(N)
+        C = N // R
+        span, other = (C // cs, R) if col else (R // cs, C)
+        for lc, B, ell in ((4, 2, 12), (1, 2, 48), (4, 8, 12), (1, 1, 1)):
+            plan = ntt_ops.phase_plan(phase, lc, cs, B, ell, R, C, sms=132)
+            tile = plan.tile
+            assert tile & (tile - 1) == 0 and span % tile == 0, (N, plan)
+            assert tile * other <= ntt_ops.TILE_WORDS
+            assert plan.ctas == lc * cs * ell * (span // tile) * B
+            words = tile * other
+            assert plan.smem == 4 * (3 * words + 2 * R if col else words + 2 * (C - 1))
+            assert plan.smem <= 227 * 1024
+            if plan.ctas < 132:         # cut as far as the plan cuts
+                assert tile == min(span, 4), (N, plan)
+    # paper_full under 4x4-BK-2x2: the widest tiles
+    assert ntt_ops.phase_plan(phase, 4, 4, 2, 12, 256, 256) == (
+        (16, 1536, 51200) if col else (16, 1536, 18424))
+    for bad in (dict(R=96, C=256), dict(R=8192, C=256), dict(R=256, C=8192),
+                dict(R=8, C=8), dict(B=0), dict(ell=70000), dict(lc=4097)):
+        args = dict(lc=4, B=2, ell=12, R=256, C=256) | bad
+        with pytest.raises(ValueError):
+            ntt_ops.phase_plan(phase, args["lc"], 16, args["B"], args["ell"],
+                               args["R"], args["C"])
+    with pytest.raises(ValueError):
+        ntt_ops.phase_plan(phase, 4, 3, 2, 12, 192, 256)
+
+
 def test_blocks_gather_plain():
     """automorphism_blocks: block j of every cluster writes its slice of the
     outputs through its slice of the table."""
