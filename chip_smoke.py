@@ -143,13 +143,16 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               ARK on 48 → 12, local), then hmult → rescale →
               hrot_hoisted([1, 4]): bytes equal to the single-device eager
               engine's on the card, decode error < 1e-2, executed
-              collectives equal to the prediction, no single-device NTT or
-              permutation kernel and no plain version on card data; warm ms
-              per op (median of 3) beside the single-device eager engine's,
-              launches per op and kernel, collectives with their bytes per op
-              beside ``cost_model.nop_traffic``; then the four NTT phase
-              kernels, the AutoU block gather and BConvU at the 4x4-BK-2x2
-              shard shapes against their plain versions, timed;
+              collectives equal to the prediction, BConvU launches per op
+              equal to the op trace's bconv records (one grouped launch per
+              limb duplication), no single-device NTT or permutation kernel
+              and no plain version on card data; warm ms per op (median of
+              3) beside the single-device eager engine's, launches per op and
+              kernel, collectives with their bytes per op beside
+              ``cost_model.nop_traffic``; then the four NTT phase kernels,
+              the AutoU block gather and BConvU at the 4x4-BK-2x2 shard
+              shapes (limb duplication's grouped launch over the whole mesh,
+              one cluster's share, ARK) against their plain versions, timed;
 14. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               (R × cluster size) and the single permutation at N = 2¹⁶,
               ℓ = 48, its cache in a temporary directory;
@@ -714,7 +717,8 @@ def kernels_checked():
         (elt_ops, "eltwise_cuda", lambda op, *a, **k: f"efu {op}",
          lambda op, basis, *a, scalars=None: elt_ops.eltwise_plain(
              op, basis, *a, scalars=scalars)),
-        (bconv_ops, "bconv_cuda", lambda *a: "bconvu", bconv_ops.bconv_plain),
+        (bconv_ops, "bconv_grouped_cuda", lambda *a: "bconvu",
+         bconv_ops.bconv_grouped_plain),
         (ntt_ops, "ntt_cuda", lambda x, fc, fwd, c: "ntt_fwd" if fwd else "ntt_inv",
          lambda x, fc, fwd, cluster: ntt_ops.ntt_plain(x, fc, fwd)),
         (auto_ops, "auto_ks_cuda", lambda *a: "auto_ks", auto_ks_plain),
@@ -1571,9 +1575,11 @@ def _dist_kernel_rows(params, gen):
     hmult's (2, 48, N) operands against their plain versions: the four NTT
     phases on (4, 4, 2, 12, N/4) blocks (then on 4x4-coef-scatter's
     (1, 16, 2, 48, N/16) blocks), the AutoU block gather of the
-    all-gathered (4, 4, 2, 12, N) rows, BConvU under limb duplication (a
-    cluster's launch: ModUp 12 → its 12 of 48 primes at n = N/4) and under
-    ARK (48 → 12 at n = N/16 on every block)."""
+    all-gathered (4, 4, 2, 12, N) rows, BConvU under limb duplication (one
+    grouped launch over every limb cluster: ModUp 12 → 48 at n = N/4, each
+    cluster its 12 primes, on gathered and on replicated blocks; and one
+    cluster's share alone) and under ARK (48 → 12 at n = N/16 on every
+    block)."""
     import numpy as np
     import torch
     from repro_torch.core import const_cache, distributed as D, poly as pl
@@ -1624,18 +1630,36 @@ def _dist_kernel_rows(params, gen):
          auto_ops.automorphism_blocks_cuda, auto_ops.automorphism_blocks_plain,
          [full, table], nbytes=2 * words * 4 + N * 8, ops=0,
          library=auto_ops.automorphism_blocks_plain)
-    for name, s_b, d_b, lead, n in (
-            ("bconv_limbdup_cluster_4x1x12_to_12", q48[:12], (q48[12:] + params.p)[:12],
-             (4, 1), N // 4),
-            ("bconv_ark_4x4x2x48_to_12", q48, params.p, (4, 4, 2), N // 16)):
-        xs = residues(s_b, lead, n, gen)
-        B, ell, k = int(np.prod(lead)), len(s_b), len(d_b)
+    # BConvU: limb duplication as the engine launches it, one grouped launch
+    # over the mesh's (4, 4, 1, 12, N/4) all-gathered blocks (ModUp 12 → 48,
+    # each limb cluster its 12 primes), then over a replicated operand's
+    # blocks (the pair's 10 → 48: group stride 0, read in place), then one
+    # cluster's share alone (the launch before the grouping); ARK's 48 → 12
+    # at n = N/16 on every block.  Bytes: the operand's distinct words read
+    # once, out written once, the table rows and per-prime constants
+    ext = q48[12:] + params.p
+    for name, s_b, d_b, lead, n, shared in (
+            ("bconv_limbdup_4x4x1x12_to_4x12", q48[:12], ext, (4, 4, 1), N // 4, False),
+            ("bconv_limbdup_shared_4x4x1x10_to_4x12", q48[:10], ext, (4, 4, 1), N // 4,
+             True),
+            ("bconv_limbdup_cluster_4x1x12_to_12", q48[:12], ext[:12], (1, 4, 1), N // 4,
+             False),
+            ("bconv_ark_4x4x2x48_to_12", q48, params.p, (1, 4, 4, 2), N // 16, False)):
+        ell, k = len(s_b), len(d_b)
+        if shared:
+            xs = residues(s_b, lead[1:], n, gen).expand(*lead, ell, n)
+        else:
+            xs = residues(s_b, lead, n, gen)
+        rows_in = int(np.prod(lead[1:] if shared else lead))
+        rows_out = int(np.prod(lead)) * k // lead[0]
         case("bconvu", name, "bconv", src + "bconv.cu",
              "src/repro/kernels/bconv/kernel.py:59",
-             lambda a, s_=s_b, d_=d_b: bconv_ops.bconv_cuda(a, s_, d_),
-             lambda a, s_=s_b, d_=d_b: bconv_ops.bconv_plain(a, s_, d_), [xs],
-             nbytes=(B * ell * n + B * k * n + k * ell) * 4 + ell * 20 + k * 16,
-             ops=2 * B * k * ell * n)
+             lambda a, s_=s_b, d_=d_b: bconv_ops.bconv_grouped_cuda(a, s_, d_),
+             lambda a, s_=s_b, d_=d_b: bconv_ops.bconv_grouped_plain(a, s_, d_), [xs],
+             nbytes=(rows_in * ell * n + rows_out * n + k * ell) * 4 + ell * 20 + k * 16,
+             ops=2 * rows_out * ell * n,
+             info={"groups": lead[0], "group_stride": xs.stride(0) if lead[0] > 1
+                   else None})
     return rows
 
 
@@ -1728,7 +1752,10 @@ def phase_distributed(params, pipeline):
                 "equal_to_single_device_eager": equal, "max_error": errors,
                 "cold_ms": cold_ms,
                 "warm_ms": {op: statistics.median(w[op] for w in warm) for op in warm[0]},
-                "launches": launches, "collectives_executed": executed,
+                "launches": launches,
+                "bconv_records": {op: t.calls.get("bconv_mul", 0)
+                                  for op, t in traces.items()},
+                "collectives_executed": executed,
                 "collectives_counted": counted, "bytes": nbytes, "per_op": per_op}
     rows = _dist_kernel_rows(params, gen)
     emit({"phase": "distributed", "params": "paper_full", "N": params.N,
@@ -1755,6 +1782,10 @@ def phase_distributed(params, pipeline):
             raise AssertionError(f"{name}: executed collectives "
                                  f"{m['collectives_executed']} against the "
                                  f"prediction {m['collectives_counted']}")
+        bconvu = {op: c.get("bconvu", 0) for op, c in m["launches"].items()}
+        if bconvu != m["bconv_records"]:
+            raise AssertionError(f"{name}: BConvU launches per op {bconvu} against "
+                                 f"the op trace's bconv records {m['bconv_records']}")
         for op, counts in m["launches"].items():
             bypass = [k for k in SINGLE_DEVICE_ONLY if counts.get(k)]
             if bypass:
@@ -1816,10 +1847,13 @@ DESIGN = {
                "memory",
     "automorphism_multi": "perm_cluster_kernel: each limb row staged once by "
                           "the TMA across a thread-block cluster",
-    "bconvu": "the q̂⁻¹ pre-scale fused in: each thread reads its ℓ source "
-              "words once (16-byte loads), Shoup-scales them in registers and "
-              "runs its chunk of destination primes against a table staged in "
-              "shared memory, one Barrett per output",
+    "bconvu": "the q̂⁻¹ pre-scale fused in: each thread reads the ℓ source "
+              "words of its 4, 2 or 1 coefficients (ℓ ≤ 16, 32, 64) once, "
+              "Shoup-scales them in registers and runs its chunk of "
+              "destination primes against a table staged in shared memory, "
+              "one Barrett per output; G groups of destination primes in one "
+              "launch (limb duplication over every limb cluster), the operand "
+              "read through its strides (group stride 0 when replicated)",
     "efu": "grid (N/1024, outer·ℓ): the limb and its constants once per CTA "
            "in registers, four words a thread by 16-byte loads and stores, "
            "strided views read in place, products by the division-free "

@@ -19,8 +19,8 @@ and read other blocks only through the mesh's collectives:
   (§V-A) — an ``all_to_all`` along "limb" into coefficient scattering, the
   full table, an ``all_to_all`` back — or limb duplication — an
   ``all_gather`` of the inputs along "limb", each limb cluster its own
-  destination rows (one launch per cluster: their tables differ), no output
-  collective — or "local" (no collective: every core already holds all limbs
+  destination rows (one grouped launch over every cluster,
+  ``bconv_ops.bconv_grouped``), no output collective — or "local" (no collective: every core already holds all limbs
   of its coefficients), chosen per Eq. 3 by ``cost_model.bconv_method``;
 * the AutoU gather of the slot-parallel automorphism
   (``kernels.automorphism.ops.automorphism_blocks``) after ONE
@@ -301,17 +301,14 @@ def _bconv_ark(mesh: Mesh, x: torch.Tensor, src, dst) -> torch.Tensor:
 def _bconv_limbdup(mesh: Mesh, x: torch.Tensor, src, dst,
                    limb_in: bool) -> torch.Tensor:
     """Limb duplication §V-A: all-gather the inputs along "limb" (none when
-    they are replicated already), each limb cluster its own destination
-    rows, outputs born on their owner."""
+    they are replicated already: every cluster reads the same words), each
+    limb cluster its own destination rows, outputs born on their owner; one
+    grouped BConv over every limb cluster."""
     lead = x.shape[:-2]
-    lc = mesh.lc
     t = mesh.place(x, limb_in)
-    if limb_in and lc > 1:                      # broadcast within the coef cluster
+    if limb_in and mesh.lc > 1:                 # broadcast within the coef cluster
         t = mesh.all_gather(t, "limb", -2)
-    k = len(dst) // lc
-    out = torch.stack([bconv_ops.bconv(t[i], src, dst[i * k:(i + 1) * k])
-                       for i in range(lc)])
-    return mesh.collect(out, True, lead)
+    return mesh.collect(bconv_ops.bconv_grouped(t, src, dst), True, lead)
 
 
 def _galois(mesh: Mesh, x: torch.Tensor, table: torch.Tensor,

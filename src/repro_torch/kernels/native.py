@@ -39,7 +39,7 @@ SIGNATURES = {
                       + [_I] * 3 + [_P],
     },
     "bconv": {
-        "bconv_launch": [_P] * 8 + [_I] * 5 + [_P],
+        "bconv_launch": [_P] * 8 + [_I] * 6 + [_LL] * 3 + [_P],
         "bconv_ctas_per_sm": [_I, _I, _P],
     },
     "automorphism": {

@@ -152,12 +152,13 @@ def test_rnspoly_ring_op_on_card(dev, op):
 @pytest.mark.parametrize("n", [1 << 11, 1 << 16])
 @pytest.mark.parametrize("B", [1, 3, 4])
 @pytest.mark.parametrize("K", [1, 5, 46])
-@pytest.mark.parametrize("ell", [1, 10, 12, 15, 16, 18])
+@pytest.mark.parametrize("ell", [1, 10, 12, 15, 16, 17, 18, 32, 33, 48, 60])
 def test_bconv_kernel(dev, ell, K, B, n):
     """The whole BConv, q̂⁻¹ pre-scale inside the kernel, against the plain
     version and the numpy oracle: ℓ on both sides of the 15 products a u64
-    holds and of the template limit 16, one batch element of largest
-    residues, and a strided view with two leading dims."""
+    holds, of each change of coefficients per thread (4 up to ℓ = 16, 2 up
+    to 32, 1 up to 64) and past ℓ = 48 (ARK's source), one batch element of
+    largest residues, and a strided view with two leading dims."""
     dst = tuple(rns.gen_ntt_primes(K, n))
     src = tuple(rns.gen_ntt_primes(ell, n, exclude=dst))
     x = residue_words(src, (B,), n, seed=ell * K + B)
@@ -184,6 +185,65 @@ def test_bconv_kernel_at_planned_chunks(dev, B, K, n):
     tx = pl.to_tensor(residue_words(src, (B,), n, seed=K + B), dev)
     assert torch.equal(bconv_ops.bconv_cuda(tx, src, dst),
                        bconv_ops.bconv_plain(tx, src, dst))
+
+
+# (G, shared, Bg, n, ℓ, Kg): limb duplication's grouped launch at the
+# distributed engine's shard shapes (n = N/16, N/4 at N = 2¹⁶), then two
+# ragged chunks (46 destination primes a group split 16 + 16 + 14)
+GROUPED = ([(G, shared, Bg, n, 12, 12) for G in (1, 2, 4) for shared in (False, True)
+            for Bg in (1, 2, 4) for n in (1 << 12, 1 << 14)]
+           + [(2, False, 4, 1 << 14, 12, 46), (2, True, 4, 1 << 14, 48, 46)])
+
+
+@pytest.mark.parametrize("G,shared,Bg,n,ell,Kg", GROUPED)
+def test_bconv_grouped_kernel(dev, G, shared, Bg, n, ell, Kg):
+    """G groups of Bg batch rows, group g into destination primes
+    g·Kg … (g+1)·Kg − 1, in one launch, against the per-group plain version
+    and the numpy oracle; a shared operand (group stride 0, as
+    ``Mesh.place`` gives a replicated one) is read in place."""
+    dst = tuple(rns.gen_ntt_primes(G * Kg, n))
+    src = tuple(rns.gen_ntt_primes(ell, n, exclude=dst))
+    x = residue_words(src, (1 if shared else G, Bg), n, seed=G * Bg + ell + shared)
+    tx = pl.to_tensor(x, dev)
+    if shared:
+        tx = tx.expand(G, Bg, ell, n)
+    if Kg == 46:
+        resident = bconv_ops.resident_ctas(ell, dev)
+        assert Kg % bconv_ops.chunk_plan(G * Bg, Kg, n, resident, bconv_ops.tile_of(ell))
+    config.reset_launches()
+    bconv_ops.reset_copy_counts()
+    got = bconv_ops.bconv_grouped(tx, src, dst)
+    assert config.launch_counts() == {"bconv": 1}
+    assert bconv_ops.copy_counts() == {}
+    assert got.shape == (G, Bg, Kg, n)
+    assert torch.equal(got, bconv_ops.bconv_grouped_plain(tx, src, dst))
+    for g in range(G):
+        np.testing.assert_array_equal(
+            pl.to_numpy(got[g]),
+            bconv_ref.bconv_ref(x[0 if shared else g], src, dst[g * Kg:(g + 1) * Kg]))
+
+
+@pytest.mark.parametrize("limb_sharded", [False, True])
+@pytest.mark.parametrize("B", [1, 2])
+def test_bconv_grouped_kernel_on_mesh_blocks(dev, B, limb_sharded):
+    """Limb duplication on a 4 × 4 mesh as the engine runs it: the blocks of a
+    replicated operand read through ``Mesh.place``'s view (copied once,
+    never once per cluster, where its batch dims flatten to no stride), or
+    the all-gathered blocks of a limb-sharded one; one launch, equal to the
+    single-device conversion."""
+    from repro_torch.core import distributed as D
+    n = 1 << 12
+    dst = tuple(rns.gen_ntt_primes(48, n))
+    src = tuple(rns.gen_ntt_primes(12, n, exclude=dst))
+    x = pl.to_tensor(residue_words(src, (B,), n, seed=40 + B), dev)
+    mesh = D.Mesh(4, 4, dev)
+    config.reset_launches()
+    bconv_ops.reset_copy_counts()
+    got = D._bconv_limbdup(mesh, x, src, dst, limb_sharded)
+    assert config.kernel_launch_counts() == {"bconvu": 1}
+    copied = {"bconv": 1} if B > 1 and not limb_sharded else {}
+    assert bconv_ops.copy_counts() == copied
+    assert torch.equal(got, bconv_ops.bconv_plain(x, src, dst))
 
 
 @pytest.mark.parametrize("G_is_R", [False, True])

@@ -31,11 +31,13 @@ import torch
 
 from make_torch_dist_ref import inputs_record
 from repro_torch.core import _dist_selftest as S
-from repro_torch.core import ckks, cost_model as cost, distributed as D
+from repro_torch.core import bconv as bc, ckks, cost_model as cost, distributed as D
+from repro_torch.core import trace as TR
 from repro_torch.core import params as prm, poly as pl, rns
 from repro_torch.core.mapping import ClusterMap
 from repro_torch.kernels import config
 from repro_torch.kernels.automorphism import ops as auto_ops
+from repro_torch.kernels.bconv import ops as bconv_ops
 from repro_torch.kernels.ntt import ops as ntt_ops
 from repro_torch.launch.mesh import make_fhe_mesh
 
@@ -263,6 +265,58 @@ def test_every_bconv_method_runs():
                for cm in MAPS for s, d in ((p.p, p.q), (p.q, p.p),
                                            (p.q[:2], p.q[2:7] + p.p))}
     assert methods == {"local", "ark", "limbdup"}
+
+
+def _stacked_limbdup(mesh, x, src, dst, limb_in):
+    """Limb duplication as one conversion per limb cluster, stacked (what the
+    engine ran before its grouped launch)."""
+    t = mesh.place(x, limb_in)
+    if limb_in and mesh.lc > 1:
+        t = mesh.all_gather(t, "limb", -2)
+    k = len(dst) // mesh.lc
+    out = torch.stack([bconv_ops.bconv(t[i], src, dst[i * k:(i + 1) * k])
+                       for i in range(mesh.lc)])
+    return mesh.collect(out, True, x.shape[:-2])
+
+
+@pytest.mark.parametrize("cm", MAPS, ids=[cm.name for cm in MAPS])
+def test_limbdup_grouped_launch_and_one_dispatch_per_bconv(n256, cm):
+    """Limb duplication's grouped launch gives the bytes of the per-cluster
+    stack (16 → 16 primes gathered, 3 → 16 replicated), and every sharded
+    BConv (local, ARK, limb duplication) dispatches BConvU once per
+    ``bconv_mul`` record."""
+    p = n256[0]
+    rng = np.random.default_rng(3)
+    wide = tuple(rns.gen_ntt_primes(32, p.N, exclude=p.q + p.p))
+    src, dst = wide[:16], wide[16:]
+    mesh = D.Mesh(cm.n_limb_clusters, cm.block_size, CPU)
+    for basis, limb_in in ((src, True), (src[:3], False)):
+        x = torch.from_numpy(np.stack(
+            [rng.integers(0, q, (2, p.N)) for q in basis], axis=1)).to(torch.int32)
+        bconv_ops.reset_dispatch_counts()
+        got = D._bconv_limbdup(mesh, x, basis, dst, limb_in)
+        assert bconv_ops.dispatch_counts() == {"bconv": 1}
+        assert torch.equal(got, _stacked_limbdup(mesh, x, basis, dst, limb_in))
+        assert torch.equal(got, bconv_ops.bconv_plain(x, basis, dst))
+    with D.dist_scope(cm, device=CPU) as ctx:
+        for s, d in ((p.p, p.q), (p.q, p.p), (p.q[:2], p.q[2:7] + p.p)):
+            x = torch.from_numpy(np.stack(
+                [rng.integers(0, q, p.N) for q in s])).to(torch.int32)
+            bconv_ops.reset_dispatch_counts()
+            with TR.trace_ops() as tr:
+                bc.bconv_raw(x, s, d)
+            assert bconv_ops.dispatch_counts() == {"bconv": tr.calls["bconv_mul"]} \
+                == {"bconv": 1}, (cm.name, len(s), len(d))
+
+
+def test_bk_pipeline_dispatches_one_bconv_per_record(n256):
+    """hmult → rescale → hrot_hoisted([1, 2]) under 4x4-BK-2x2: BConvU
+    dispatches equal the op trace's ``bconv_mul`` records."""
+    p, ks, ct1, ct2 = n256
+    bconv_ops.reset_dispatch_counts()
+    with TR.trace_ops() as tr:
+        S._pipeline_run(ClusterMap.parse("4x4-BK-2x2"), p, ks, ct1, ct2, CPU)
+    assert bconv_ops.dispatch_counts()["bconv"] == tr.calls["bconv_mul"] > 0
 
 
 def test_inputs_carried_across(n256, n1024):

@@ -170,6 +170,32 @@ def test_bconv_plain_exact_past_sixteen_terms():
     np.testing.assert_array_equal(u32(got)[0], bconv_ref.bconv_ref(x[0], src, dst))
 
 
+@pytest.mark.parametrize("ell", [12, 48])
+def test_bconv_grouped_plain_is_the_per_cluster_stack(ell):
+    """G = 4 groups, each into its own Kg = 3 destination primes: the
+    per-group stack of bconv_plain and the numpy oracle, for an operand
+    shared by the groups (group stride 0) and for a non-contiguous batch
+    view; one dispatch per call, on the CPU too."""
+    G, Kg = 4, 3
+    dst = tuple(jrns.gen_ntt_primes(G * Kg, N))
+    src = tuple(jrns.gen_ntt_primes(ell, N, exclude=dst))
+    shared = t(rand(src, (2,), seed=ell)).expand(G, 2, ell, N)
+    view = t(rand(src, (2, G), seed=ell + 1)).transpose(0, 1)
+    assert shared.stride(0) == 0 and not view.is_contiguous()
+    for x in (shared, view):
+        bconv_ops.reset_dispatch_counts()
+        got = bconv_ops.bconv_grouped(x, src, dst)
+        assert bconv_ops.dispatch_counts() == {"bconv": 1}
+        assert got.shape == (G, 2, Kg, N) and got.dtype == torch.int32
+        for g in range(G):
+            part = dst[g * Kg:(g + 1) * Kg]
+            assert torch.equal(got[g], bconv_ops.bconv_plain(x[g], src, part))
+            np.testing.assert_array_equal(u32(got[g]),
+                                          bconv_ref.bconv_ref(u32(x[g]), src, part))
+    with pytest.raises(ValueError):
+        bconv_ops.bconv_grouped(shared[:1].expand(5, 2, ell, N), src, dst)  # 12 % 5
+
+
 @pytest.mark.parametrize("B,K,N,resident,want", [
     (4, 46, 1 << 16, 396, 16),    # ModDown of a hoisted pair, 3 CTAs × 132 SMs
     (1, 48, 1 << 16, 396, 8),     # ModUp of one digit
@@ -189,6 +215,17 @@ def test_bconv_chunk_plan(B, K, N, resident, want):
     assert chunk == want
 
 
+@pytest.mark.parametrize("ell,tile", [(1, 1024), (16, 1024), (17, 512), (32, 512),
+                                      (33, 256), (48, 256), (64, 256)])
+def test_bconv_tile_follows_the_held_words(ell, tile):
+    """A CTA covers 256 threads × 4, 2 or 1 coefficients as ℓ passes 16 and
+    32: the ℓ·V words a thread holds stay at most 64."""
+    assert bconv_ops.tile_of(ell) == tile
+    assert ell * tile // 256 <= 64
+    # ARK's (32, 48, N/16) → 12 at two CTAs an SM: one split of 12 primes
+    assert bconv_ops.chunk_plan(32, 12, 1 << 12, 264, bconv_ops.tile_of(48)) == 12
+
+
 def test_bconv_cuda_rejects_bad_operands():
     """Checked before any kernel is built."""
     dst = tuple(jrns.gen_ntt_primes(2, N))
@@ -197,6 +234,9 @@ def test_bconv_cuda_rejects_bad_operands():
         bconv_ops.bconv_cuda(t(rand(src[:2], (2,))), src, dst)       # ℓ ≠ |src|
     with pytest.raises(TypeError):
         bconv_ops.bconv_cuda(torch.zeros((2, 3, N), dtype=torch.int64), src, dst)
+    with pytest.raises(ValueError):                                  # ℓ > 64
+        wide = tuple(jrns.gen_ntt_primes(65, N, exclude=dst))
+        bconv_ops.bconv_cuda(torch.zeros((1, 65, N), dtype=torch.int32), wide, dst)
 
 
 # ------------------------------------------------ AutoU∘KS / multi-perm
