@@ -153,17 +153,32 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               the AutoU block gather and BConvU at the 4x4-BK-2x2 shard
               shapes (limb duplication's grouped launch over the whole mesh,
               one cluster's share, ARK) against their plain versions, timed;
-14. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
+14. examples — the FHE examples of ``examples/torch`` on the card: each at
+              its own parameters with the ciphertext digests, decoded values
+              and HE-op counts the JAX package recorded in
+              ``tests/torch_examples_ref.json`` (HELR and the quickstart on
+              both engines, the bootstrapping demo also on this machine's
+              CPU, the distributed demo's bytes between distinct blocks as
+              pinned); then HELR at ``paper_full``'s ring (N = 2¹⁶, L = 48,
+              K = 12, dnum = 4) with single-prime rescales, batch 1024, 196
+              features, 2 iterations: every fused-path kernel launched, no
+              plain version on card data, every decrypted weight within
+              5e-3 of the float64 replay of the same update and the accuracy
+              within one point of the replay's and ≥ 0.8; seconds of keygen,
+              encoding and each iteration, launches per kernel and family,
+              ``cost_crosscheck`` of its op trace, peak device memory;
+15. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               (R × cluster size) and the single permutation at N = 2¹⁶,
               ℓ = 48, its cache in a temporary directory;
-15. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
+16. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
               (every kernel against its plain version at small shapes and at
               the bootstrap's N = 2¹⁴ shapes, the NTT at every cluster size of
               every split it is tested at);
 
 then the kernel table as one JSON line (launches: the pipeline's pass, one
 warm bootstrap, one warm served wave, the analytics phase's traced ops and
-wave and one distributed pass per map, and each path's share), and the
+wave, one distributed pass per map and HELR's two iterations at the paper's
+ring, and each path's share), and the
 result line
 ``{"ok": true, "device": {...}}`` last.  Any failure raises: the script exits
 non-zero and prints no result.  It imports nothing of JAX.
@@ -1800,6 +1815,103 @@ def phase_distributed(params, pipeline):
     return dict(total), rows
 
 
+# HELR at the paper's ring (examples/torch/helr_training.py --preset paper):
+# each decrypted weight against the float64 replay of the same update, the
+# accuracy against the replay's and the example's own floor
+HELR_WEIGHT_BOUND = 5e-3
+HELR_ACCURACY_POINTS = 0.01
+HELR_MIN_ACCURACY = 0.8
+
+
+def phase_examples():
+    """The FHE examples of ``examples/torch`` on the card: (a) each at its own
+    parameters, held to the JAX package's record (``tests/torch_examples.py``
+    against ``tests/torch_examples_ref.json``), HELR and the quickstart on
+    both engines, the rest on the fused one, the bootstrapping demo also on
+    this machine's CPU; (b) HELR at ``paper_full``'s ring with single-prime
+    rescales, batch 1024, 196 features, 2 iterations, with the launch counts
+    reset just before its iterations and read just after: every fused-path
+    kernel launched, no plain version on card data, every decrypted weight
+    within 5e-3 of the float64 replay and the accuracy within one point of
+    the replay's and ≥ 0.8; wall seconds of keygen, encoding and each
+    iteration, launches per kernel and family, ``cost_crosscheck`` of its
+    op trace, peak device memory.  Returns HELR's per-kernel launches."""
+    import numpy as np
+    import torch
+    import torch_examples as TE
+    from repro_torch.kernels.eltwise import ops as elt_ops
+    t0 = time.perf_counter()
+    ref = TE.reference()
+    own = {}
+    with tempfile.TemporaryDirectory() as tmp, plain_calls_on_card() as plain:
+        for part, engines in TE.ENGINES.items():
+            for engine in engines:
+                t1 = time.perf_counter()
+                got = TE.port_record(part, DEVICE, engine, out_dir=tmp)
+                own[f"{part}/{engine}"] = {
+                    "checks": TE.compare(part, got, ref[part][engine]),
+                    "seconds": time.perf_counter() - t1}
+    own_plain = dict(plain)
+    t1 = time.perf_counter()
+    got = TE.port_record("bootstrapping", "cpu")
+    own["bootstrapping/fused/cpu"] = {
+        "checks": TE.compare("bootstrapping", got, ref["bootstrapping"]["fused"]),
+        "seconds": time.perf_counter() - t1}
+    del got
+
+    helr = TE.load("helr")
+    cfg = helr.PRESETS["paper"]
+    p = cfg["params"]()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    elt_ops.reset_copy_counts()
+    t1 = time.perf_counter()
+    with plain_calls_on_card() as plain:
+        run = helr.run_helr(p, cfg["features"], cfg["batch"], cfg["iters"],
+                            device=DEVICE)
+    helr_s = time.perf_counter() - t1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    replay = helr.replay(run.X, run.y, cfg["iters"], p.slots)[:, 0]
+    weight_err = float(np.max(np.abs(run.w_dec - replay)))
+    replay_acc = helr.accuracy(run.X, run.y, replay)
+    iters_ms = 1e3 * sum(v for k, v in run.seconds.items() if k.startswith("iter"))
+    result = {
+        "preset": "paper", "N": p.N, "L": p.L, "K": p.K, "dnum": p.dnum,
+        "rescale_primes": 1, "features": cfg["features"], "batch": cfg["batch"],
+        "iters": cfg["iters"], "seconds": run.seconds, "total_s": helr_s,
+        "levels": run.levels, "max_weight_error": weight_err,
+        "accuracy": run.acc, "replay_accuracy": replay_acc,
+        "he_ops": dict(run.trace.he_ops), "launches": run.launches,
+        "families": _launch_mirror(run.trace, run.families, "helr"),
+        "crosscheck": _crosscheck(run.trace, iters_ms),
+        "plain_calls_on_card": dict(plain),
+        "efu_operand_copies": dict(elt_ops.copy_counts()),
+        "peak_memory_gb": peak_gb}
+    launches = run.launches
+    del run
+    torch.cuda.empty_cache()
+    emit({"phase": "examples", "own_parameters": own,
+          "own_plain_calls_on_card": own_plain, "helr": result,
+          "seconds": time.perf_counter() - t0})
+    failed = {k: [c for c, ok in v["checks"].items() if not ok]
+              for k, v in own.items() if not all(v["checks"].values())}
+    if failed:
+        raise AssertionError(f"examples differ from the JAX package's record: {failed}")
+    if own_plain or result["plain_calls_on_card"]:
+        raise AssertionError(f"plain versions ran on card data: {own_plain}, "
+                             f"{result['plain_calls_on_card']}")
+    missing = [k for k in FUSED_PATH_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"helr: kernels {missing} never launched: {launches}")
+    if weight_err >= HELR_WEIGHT_BOUND:
+        raise AssertionError(f"helr: a decrypted weight is {weight_err} from the replay")
+    if abs(result["accuracy"] - replay_acc) > HELR_ACCURACY_POINTS \
+            or result["accuracy"] < HELR_MIN_ACCURACY:
+        raise AssertionError(f"helr: accuracy {result['accuracy']} against the "
+                             f"replay's {replay_acc}")
+    return launches
+
+
 def phase_autotune(params, cache_file):
     """A quick sweep of the NTT's and the single permutation's knobs through
     the autotuner's command-line entry point."""
@@ -1935,13 +2047,15 @@ def main() -> int:
         dist_launches, dist_rows = phase_distributed(paper, pipeline)
         rows += dist_rows
         del pipeline
+        helr_launches = phase_examples()
         phase_autotune(paper, cache_file)
         autotune.set_cache_path(None)
     phase_card_tests()
     table = kernel_table(rows, {"pipeline": launches, "bootstrap": boot_launches,
                                 "serve": serve_launches,
                                 "analytics": analytics_launches,
-                                "distributed": dist_launches})
+                                "distributed": dist_launches,
+                                "helr": helr_launches})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -128,10 +128,37 @@ def _crt_consts(basis: tuple[int, ...]) -> tuple[int, list[int]]:
     return Q, lift
 
 
+def _small_lift(res: np.ndarray, basis: tuple[int, ...]) -> np.ndarray | None:
+    """The centred coefficients as int64 when each lies within ±q₀q₁/2,
+    else None.
+
+    The CRT of the first two limbs gives x ∈ (−q₀q₁/2, q₀q₁/2] exactly in
+    int64 (q₀q₁ < 2⁶⁰); if x ≡ the residue mod every other prime too, x is
+    the centred CRT value over the whole basis (|x| < Q/2, and the CRT is
+    unique), so it equals what the big-integer path computes."""
+    q0, q1 = basis[0], basis[1]
+    r0, r1 = res[0], res[1]
+    x = r0 + q0 * ((r1 - r0) % q1 * pow(q0, -1, q1) % q1)
+    x = np.where(x > q0 * q1 // 2, x - q0 * q1, x)
+    for i in range(2, len(basis)):
+        if not np.array_equal(x % basis[i], res[i]):
+            return None
+    return x
+
+
 def coefficients(residues: np.ndarray, basis: tuple[int, ...]) -> np.ndarray:
-    """(ℓ, N) residues → the centred integer coefficients (CRT), as float64."""
-    Q, lift = _crt_consts(tuple(basis))
+    """(ℓ, N) residues → the centred integer coefficients (CRT), as float64.
+
+    Coefficients within ±q₀q₁/2 (a decrypted message at scale Δ ≈ q) are
+    lifted in int64 from two limbs and checked against the others
+    (:func:`_small_lift`); otherwise the big-integer CRT runs.  Both give
+    the same integers."""
     res = np.asarray(residues, dtype=np.int64)
+    if len(basis) >= 2:
+        x = _small_lift(res, tuple(basis))
+        if x is not None:
+            return x.astype(np.float64)
+    Q, lift = _crt_consts(tuple(basis))
     acc = sum(res[i].astype(object) * lift[i] for i in range(len(basis))) % Q
     return np.where(acc > Q // 2, acc - Q, acc).astype(np.float64)
 
