@@ -153,7 +153,25 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               the AutoU block gather and BConvU at the 4x4-BK-2x2 shard
               shapes (limb duplication's grouped launch over the whole mesh,
               one cluster's share, ARK) against their plain versions, timed;
-14. examples — the FHE examples of ``examples/torch`` on the card: each at
+14. cards   — the distributed engine's mesh with its coefficient axis split
+              into four parts (``Mesh(…, devices)``): (a) at N = 256 on every
+              map of 1–16 shards whose block size 4 divides, on four parts of
+              the card and four parts of the CPU: each primitive's bytes equal
+              on both, its bytes between parts their closed form, the
+              pipeline's digests the JAX package's, both collective tallies
+              the prediction's and the one-part mesh's; (b) ``paper_full``
+              under 4x4-BK-2x2 and 4x4-coef-scatter on four parts of cuda:0:
+              hmult → rescale → hrot_hoisted([1, 4]) on the pipeline phase's
+              keys and ciphertexts with the bytes of the one-part sharded
+              engine and of the single-device eager engine, decode error
+              < 1e-2, executed collectives equal to the prediction, every path
+              kernel launched on the mesh's card; warm ms per op, launches per
+              op, card and kernel, bytes between blocks and between parts;
+              (c) where the machine has two or more cards, (b) on distinct
+              cards (four, or two) and each "coef" collective timed alone
+              between them (CUDA events on every card, GB/s); on one card it
+              says that (c) did not run;
+15. examples — the FHE examples of ``examples/torch`` on the card: each at
               its own parameters with the ciphertext digests, decoded values
               and HE-op counts the JAX package recorded in
               ``tests/torch_examples_ref.json`` (HELR and the quickstart on
@@ -167,18 +185,20 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               within one point of the replay's and ≥ 0.8; seconds of keygen,
               encoding and each iteration, launches per kernel and family,
               ``cost_crosscheck`` of its op trace, peak device memory;
-15. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
+16. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               (R × cluster size) and the single permutation at N = 2¹⁶,
               ℓ = 48, its cache in a temporary directory;
-16. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
+17. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
               (every kernel against its plain version at small shapes and at
               the bootstrap's N = 2¹⁴ shapes, the NTT at every cluster size of
-              every split it is tested at);
+              every split it is tested at; the tests that need two cards run
+              where the machine has them);
 
 then the kernel table as one JSON line (launches: the pipeline's pass, one
 warm bootstrap, one warm served wave, the analytics phase's traced ops and
-wave, one distributed pass per map and HELR's two iterations at the paper's
-ring, and each path's share), and the
+wave, one distributed pass per map, one pass per map on four parts of the
+card and HELR's two iterations at the paper's ring, and each path's share),
+and the
 result line
 ``{"ok": true, "device": {...}}`` last.  Any failure raises: the script exits
 non-zero and prints no result.  It imports nothing of JAX.
@@ -1707,7 +1727,7 @@ def phase_distributed(params, pipeline):
     single-device eager engine's, launches per op and kernel, collectives and
     their bytes per op beside ``cost_model.nop_traffic``; no plain version on
     card data.  Returns (per-kernel launches of one pass per map, kernel
-    rows)."""
+    rows, the digests of each map's and of the eager engine's outputs)."""
     import numpy as np
     import torch
     from repro_torch.core import ckks, cost_model as cost, distributed as D
@@ -1728,6 +1748,9 @@ def phase_distributed(params, pipeline):
         ref_warm = [_dist_ops(c1, c2, keys, params, sync)[1] for _ in range(3)]
     ref_ms = {op: statistics.median(w[op] for w in ref_warm) for op in ref_warm[0]}
     maps, total = {}, collections.Counter()
+    digests = {"eager": {k: _digest(c) for k, c in (
+        ("hmult", ref["hmult"]), ("rescale", ref["rescale"]),
+        ("rot1", ref["hoisted_rotations"][0]), ("rot4", ref["hoisted_rotations"][1]))}}
     with plain_calls_on_card() as plain:
         for name in DIST_MAPS:
             cm = ClusterMap.parse(name)
@@ -1755,6 +1778,7 @@ def phase_distributed(params, pipeline):
             equal = {k: bool(torch.equal(got[k].a.data, refs[k].a.data)
                              and torch.equal(got[k].b.data, refs[k].b.data))
                      for k in got}
+            digests[name] = {k: _digest(c) for k, c in got.items()}
             errors = {}
             for stage, z in want.items():
                 ct = got[stage]
@@ -1812,7 +1836,276 @@ def phase_distributed(params, pipeline):
     if missing:
         raise AssertionError(f"distributed: kernels {missing} never launched: "
                              f"{dict(total)}")
-    return dict(total), rows
+    return dict(total), rows, digests
+
+
+# parts of the distributed engine's mesh in phase ``cards``: the coefficient
+# axis split over four parts (of one card, and of four cards where the
+# machine has them)
+CARDS_PARTS = 4
+
+
+def _sync_cards(devices):
+    """Synchronize every distinct card of ``devices``."""
+    import torch
+    cards = sorted({torch.device(d).index or 0 for d in devices})
+
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+    return sync
+
+
+def _cards_ops(ct1, ct2, keys, params, sync, mesh):
+    """hmult → rescale → hrot_hoisted([1, 4]) once under a multi-part
+    scope: per op its result, host ms ending in a sync of every card, the
+    launches per kernel and per card and kernel (counts reset just before
+    the op, read just after), the collectives it executed, their bytes
+    between blocks and between parts."""
+    from repro_torch.core import ckks
+    from repro_torch.kernels import config
+    out, rec = {}, {}
+    steps = (("hmult", lambda: ckks.hmult(ct1, ct2, keys)),
+             ("rescale", lambda: ckks.rescale(out["hmult"], params)),
+             ("hoisted_rotations", lambda: ckks.hrot_hoisted(out["rescale"], [1, 4],
+                                                             keys)))
+    for name, fn in steps:
+        snap = mesh.snapshot()
+        out[name], ms, launches = _timed_op(fn, sync)
+        executed, nbytes = mesh.since(snap)
+        rec[name] = {"ms": ms, "launches": launches,
+                     "launches_per_card": config.card_launch_counts(),
+                     "collectives": executed, "bytes": nbytes,
+                     "bytes_between_parts": mesh.parts_since(snap)}
+    return out, rec
+
+
+def _collective_times(mesh, params, gen, reps=5):
+    """Each "coef" collective of a BK-2x2 pass alone on the mesh's parts at
+    the paper's widths: the NTT's all-to-all of a (2, 48, N) operand's
+    column-phase blocks and the AutoU's all-gather of a (2, 46, N)
+    replicated operand's blocks.  Per collective: ms between CUDA events
+    recorded on every card's current stream before and after it (the
+    largest card's, median of ``reps``), the host ms ending in a sync of
+    every card, the bytes between parts and their GB/s."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.core.mapping import ClusterMap
+    N = params.N
+    sync = _sync_cards(mesh.devices)
+    R = D.DistContext(ClusterMap.parse("4x4-BK-2x2"), None).submodules(N)
+    C, cs = N // R, mesh.cs
+    x48 = mesh.split(residues(params.q[:48], (2,), N, gen))
+    x46 = mesh.split(residues(params.q[:46], (2,), N, gen))
+    cases = {
+        "all_to_all": lambda: mesh.all_to_all(
+            mesh.each(lambda b: b.unflatten(-1, (R, C // cs)),
+                      mesh.place(x48, True)), "coef", -2, -1),
+        "all_gather": lambda: mesh.all_gather(mesh.place(x46, False), "coef", -1)}
+    cards = sorted({d.index or 0 for d in mesh.devices})
+    out = {}
+    for kind, fn in cases.items():
+        fn()
+        sync()
+        dev_ms, host_ms = [], []
+        for _ in range(reps):
+            ev = {c: (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)) for c in cards}
+            for c in cards:
+                ev[c][0].record(torch.cuda.current_stream(c))
+            snap = mesh.snapshot()
+            t0 = time.perf_counter()
+            fn()
+            for c in cards:
+                ev[c][1].record(torch.cuda.current_stream(c))
+            sync()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(max(s.elapsed_time(e) for s, e in ev.values()))
+            carried = mesh.parts_since(snap).get(kind, 0)
+        ms = statistics.median(dev_ms)
+        out[kind] = {"ms": ms, "host_ms": statistics.median(host_ms),
+                     "bytes_between_parts": carried,
+                     "GB_per_s": carried / ms / 1e6 if ms > 0 else None}
+    return out
+
+
+def _cards_paper(params, pipeline, digests, devices):
+    """(b)/(c) of phase ``cards``: ``paper_full`` under each of DIST_MAPS on
+    the mesh split over ``devices``: hmult → rescale → hrot_hoisted([1, 4])
+    on the pipeline phase's keys and ciphertexts, bytes equal to the
+    one-part sharded engine's and the single-device eager engine's
+    (``digests``), decode error < 1e-2, executed collectives equal to the
+    prediction, every path kernel launched on every card of the mesh; warm
+    ms per op (median of 3, host clock after a sync of every card),
+    launches per op, card and kernel, bytes between blocks and parts."""
+    import numpy as np
+    from repro_torch.core import distributed as D, encoding as enc, keys as K
+    from repro_torch.core.mapping import ClusterMap
+    from repro_torch.kernels import config
+    keys, (c1, c2) = pipeline["keys"], pipeline["inputs"]
+    sync = _sync_cards(devices)
+    n = 16
+    prod = np.concatenate([_messages(n, 1) * _messages(n, 2),
+                           np.zeros(params.slots - n)])
+    want = {"rescale": prod[:n], "rot1": np.roll(prod, -1)[:n],
+            "rot4": np.roll(prod, -4)[:n]}
+    maps = {}
+    for name in DIST_MAPS:
+        cm = ClusterMap.parse(name)
+        with D.dist_scope(cm, devices=devices) as ctx:
+            dk = D.shard_keyset(keys, ctx)
+            d1, d2 = D.shard_ciphertext(c1, ctx), D.shard_ciphertext(c2, ctx)
+            before = config.collective_counts()
+            out, rec = _cards_ops(d1, d2, dk, params, sync, ctx.mesh)
+            counted = config.collectives_since(before)
+            executed = collections.Counter()
+            for r in rec.values():
+                executed.update(r["collectives"])
+            warm = [_cards_ops(d1, d2, dk, params, sync, ctx.mesh)[1]
+                    for _ in range(3)]
+            got = {"hmult": D.unshard_ciphertext(out["hmult"], ctx),
+                   "rescale": D.unshard_ciphertext(out["rescale"], ctx),
+                   "rot1": D.unshard_ciphertext(out["hoisted_rotations"][0], ctx),
+                   "rot4": D.unshard_ciphertext(out["hoisted_rotations"][1], ctx)}
+        dig = {k: _digest(c) for k, c in got.items()}
+        errors = {}
+        for stage, z in want.items():
+            ct = got[stage]
+            dec = enc.decode(K.decrypt(ct, keys.sk), ct.scale, ct.basis, params.N, n)
+            errors[stage] = float(np.max(np.abs(dec - z)))
+        per_card = collections.defaultdict(collections.Counter)
+        for r in rec.values():
+            for card, counts in r["launches_per_card"].items():
+                per_card[card].update(counts)
+        maps[name] = {
+            "equal_to_one_part_engine": dig == digests[name],
+            "equal_to_single_device_eager": dig == digests["eager"],
+            "max_error": errors, "collectives_executed": dict(executed),
+            "collectives_counted": counted, "ops": rec,
+            "warm_ms": {op: statistics.median(w[op]["ms"] for w in warm)
+                        for op in rec},
+            "launches_per_pass_per_card": {c: dict(v) for c, v in per_card.items()}}
+    return maps
+
+
+def _check_cards_paper(maps, devices, where):
+    cards = sorted(set(map(str, devices)))
+    for name, m in maps.items():
+        if not (m["equal_to_one_part_engine"] and m["equal_to_single_device_eager"]):
+            raise AssertionError(f"cards {where} {name}: bytes differ from the "
+                                 "one-part and single-device engines")
+        if not all(e < 1e-2 for e in m["max_error"].values()):
+            raise AssertionError(f"cards {where} {name}: decode error ≥ 1e-2: "
+                                 f"{m['max_error']}")
+        if m["collectives_executed"] != m["collectives_counted"]:
+            raise AssertionError(f"cards {where} {name}: executed collectives "
+                                 f"{m['collectives_executed']} against the "
+                                 f"prediction {m['collectives_counted']}")
+        per_card = m["launches_per_pass_per_card"]
+        if sorted(per_card) != cards:
+            raise AssertionError(f"cards {where} {name}: kernels launched on "
+                                 f"{sorted(per_card)}, the mesh is on {cards}")
+        for card, counts in per_card.items():
+            bypass = [k for k in SINGLE_DEVICE_ONLY if counts.get(k)]
+            if bypass:
+                raise AssertionError(f"cards {where} {name}: single-device "
+                                     f"kernels {bypass} launched on {card}")
+    for card in cards:
+        total = collections.Counter()
+        for m in maps.values():
+            total.update(m["launches_per_pass_per_card"].get(card, {}))
+        missing = [k for k in DIST_PATH_KERNELS if total[k] <= 0]
+        if missing:
+            raise AssertionError(f"cards {where}: kernels {missing} never "
+                                 f"launched on {card}")
+
+
+def phase_cards(params, pipeline, digests):
+    """The distributed engine's mesh split into four parts along "coef":
+    (a) at N = 256 on every map of 1–16 shards with 4 | cs, on four parts
+    of the card and four parts of the CPU: each primitive's bytes equal on
+    both and to the permuted single-device result, its bytes between parts
+    their closed form, the pipeline's digests equal on both and to the JAX
+    package's single-device eager digests, both collective tallies equal
+    to the prediction and the one-part mesh's; (b) ``paper_full`` on four
+    parts of cuda:0 (:func:`_cards_paper`); (c) the same on distinct cards
+    (four, or two with two or three on the machine) with each "coef"
+    collective timed alone between them (:func:`_collective_times`); on a
+    machine with one card (c) does not run and the phase says so.  No plain
+    version may run on card data.  Returns the per-kernel launches of (b)'s
+    passes."""
+    import numpy as np
+    import torch
+    from repro_torch.core import _dist_selftest as S, distributed as D, params as prm
+    t0 = time.perf_counter()
+    card0 = "cuda:0"
+    want = json.loads(DIST_REF.read_text())["N"]["256"]["engines"]["eager"]
+    p = prm.make_params(N=256, L=8, K=2, dnum=4)
+    maps = [cm for n in (1, 2, 4, 8, 16) for cm in S.maps_for_parts(n, CARDS_PARTS)]
+    inputs = {dev: S._make_inputs(p, device=dev) for dev in ("cpu", card0)}
+    cross = {}
+    with plain_calls_on_card() as plain:
+        for cm in maps:
+            runs = {}
+            for dev in ("cpu", card0):
+                devs = [dev] * CARDS_PARTS
+                with D.dist_scope(cm, device=dev, devices=devs) as ctx:
+                    prims = S._prim_checks(ctx, p, np.random.default_rng(11), dev)
+                runs[dev] = (prims, S._pipeline_run(cm, p, *inputs[dev], dev, devs))
+            one = S._pipeline_run(cm, p, *inputs[card0], card0)
+            (pc, qc), (pg, qg) = runs["cpu"], runs[card0]
+            cross[cm.name] = {
+                "prims_equal": all(pc[k]["digest"] == pg[k]["digest"] for k in pc),
+                "prims_exact": all(v["exact"] for v in pg.values()),
+                "counts_match": all(v["counts_match"] for v in pg.values()),
+                "pipeline_equal": qc == qg,
+                "pipeline_equals_jax": qg["digests"] == want,
+                "tallies_equal_one_part": (qg["executed"], qg["bytes"])
+                                          == (one["executed"], one["bytes"]),
+                "collectives": qg["executed"], "predicted": qg["collectives"],
+                "bytes_between_parts": qg["part_bytes"]}
+        paper = {"parts_of_one_card": _cards_paper(params, pipeline, digests,
+                                                   [card0] * CARDS_PARTS)}
+        count = torch.cuda.device_count()
+        distinct = None
+        if count >= 2:
+            nd = CARDS_PARTS if count >= CARDS_PARTS else 2
+            devs = [f"cuda:{k}" for k in range(nd)]
+            paper["distinct_cards"] = _cards_paper(params, pipeline, digests, devs)
+            gen = torch.Generator(device=card0).manual_seed(SEED + 24)
+            mesh = D.Mesh(4, 4, devs)
+            distinct = {"devices": devs,
+                        "collectives": _collective_times(mesh, params, gen)}
+    cards = len(distinct["devices"]) if distinct else 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    emit({"phase": "cards", "parts": CARDS_PARTS, "cards": cards,
+          "nvidia_smi_per_card": smi,
+          "distinct_cards": distinct if distinct else
+          {"ran": False, "why": f"the machine has {torch.cuda.device_count()} "
+                                "card: (c) needs two or more"},
+          "cross_N256": cross, "paper_full": paper,
+          "plain_calls_on_card": dict(plain), "seconds": time.perf_counter() - t0})
+    if plain:
+        raise AssertionError(f"plain versions ran on card data: {dict(plain)}")
+    bad = {name: r for name, r in cross.items()
+           if not (r["prims_equal"] and r["prims_exact"] and r["counts_match"]
+                   and r["pipeline_equal"] and r["pipeline_equals_jax"]
+                   and r["tallies_equal_one_part"]
+                   and r["collectives"] == r["predicted"])}
+    if bad:
+        raise AssertionError(f"cards: maps differ at N = 256: {bad}")
+    _check_cards_paper(paper["parts_of_one_card"], [card0] * CARDS_PARTS,
+                       "parts of one card")
+    if distinct:
+        _check_cards_paper(paper["distinct_cards"], distinct["devices"],
+                           "distinct cards")
+    total = collections.Counter()
+    for m in paper["parts_of_one_card"].values():
+        for r in m["ops"].values():
+            total.update(r["launches"])
+    return dict(total)
 
 
 # HELR at the paper's ring (examples/torch/helr_training.py --preset paper):
@@ -2044,8 +2337,9 @@ def main() -> int:
         serve_launches, serve_trace = phase_serve()
         analytics_launches = phase_analytics(paper, pipeline, serve_trace)
         phase_dist_cross()
-        dist_launches, dist_rows = phase_distributed(paper, pipeline)
+        dist_launches, dist_rows, dist_digests = phase_distributed(paper, pipeline)
         rows += dist_rows
+        cards_launches = phase_cards(paper, pipeline, dist_digests)
         del pipeline
         helr_launches = phase_examples()
         phase_autotune(paper, cache_file)
@@ -2055,6 +2349,7 @@ def main() -> int:
                                 "serve": serve_launches,
                                 "analytics": analytics_launches,
                                 "distributed": dist_launches,
+                                "cards": cards_launches,
                                 "helr": helr_launches})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})

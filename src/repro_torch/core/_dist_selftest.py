@@ -1,9 +1,15 @@
 """Self-test and traffic measurement of the distributed engine, in one process.
 
     python -m repro_torch.core._dist_selftest <n_shards> <mode> [...] [--device cpu|cuda]
+        [--cards D [--distinct]]
 
 prints one JSON line.  The mesh is ``n_shards`` logical shards on one device
 (:class:`repro_torch.core.distributed.Mesh`), so no process is started.
+``--cards D`` (suite only) splits its coefficient axis into D parts: D parts
+of ``--device``, or with ``--distinct`` the cards cuda:0 … cuda:D−1; the
+suite then runs every map whose block size D divides, and holds each
+primitive's bytes between parts to their closed form
+(:func:`part_bytes_closed_form`).
 
 Modes:
   correctness  — the standalone programs (baseline and four-step NTT, ARK and
@@ -86,7 +92,9 @@ def digest(arr) -> str:
     read as its u32 bits), the reference's ``_dist_selftest.digest``."""
     import torch
     from repro_torch.core import poly as pl
-    a = pl.to_numpy(arr) if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    from repro_torch.core.parts import Parts
+    a = (pl.to_numpy(arr) if isinstance(arr, (torch.Tensor, Parts))
+         else np.asarray(arr))
     a = np.ascontiguousarray(a)
     h = hashlib.sha256()
     h.update(str((a.shape, a.dtype.str)).encode())
@@ -133,19 +141,37 @@ def reference_pipeline(p, ks, ct1, ct2, engine: str = "eager") -> dict:
 # ----------------------------------------------------------------------------
 
 def _tallied(ctx, fn):
-    """(result, count_collective delta, mesh-executed counts, bytes) of fn()."""
+    """(result, count_collective delta, mesh-executed counts, bytes, bytes
+    between parts) of fn()."""
     from repro_torch.kernels import config as kcfg
     before = kcfg.collective_counts()
     snap = ctx.mesh.snapshot()
     out = fn()
     executed, nbytes = ctx.mesh.since(snap)
-    return out, kcfg.collectives_since(before), executed, nbytes
+    return (out, kcfg.collectives_since(before), executed, nbytes,
+            ctx.mesh.parts_since(snap))
 
 
-def _entry(out, exact, counts, executed, nbytes, predicted, **extra) -> dict:
+def part_bytes_closed_form(op: str, ell: int, N: int, D: int) -> dict:
+    """Bytes a primitive on one (ℓ, N) operand copies between the D parts
+    of a mesh split along "coef": the NTT's all-to-all sends every other
+    part its share, (D − 1)/D of the operand; the AutoU all-gather gives
+    every part the other D − 1 parts' words; the BConv's collectives run
+    along "limb", inside each part.  A replicated operand travels once for
+    all limb clusters, so no map's limb clusters enter."""
+    words = ell * N * 4
+    if D == 1 or op == "bconv":
+        return {}
+    if op in ("ntt", "intt"):
+        return {"all_to_all": words * (D - 1) // D}
+    return {"all_gather": words * (D - 1)}
+
+
+def _entry(out, exact, counts, executed, nbytes, part_bytes, predicted,
+           **extra) -> dict:
     return {"exact": bool(exact), "digest": digest(out), "counts": counts,
             "executed": executed,
-            "bytes": nbytes, "predicted": predicted,
+            "bytes": nbytes, "part_bytes": part_bytes, "predicted": predicted,
             "counts_match": _delta_matches(counts, predicted)
                             and _delta_matches(executed, predicted),
             **extra}
@@ -174,15 +200,15 @@ def _prim_checks(ctx, p, rng, device) -> dict:
     x = rows(basis)
     want_ntt = pl.to_numpy(ntt_ops.ntt_fwd(pl.to_tensor(x, dev), basis))
     sp = D.shard_poly(pl.RnsPoly(pl.to_tensor(x, dev), basis, pl.COEFF), ctx)
-    sn, c_fwd, e_fwd, b_fwd = _tallied(ctx, sp.to_ntt)
-    sc, c_inv, e_inv, b_inv = _tallied(ctx, sn.to_coeff)
+    sn, *t_fwd = _tallied(ctx, sp.to_ntt)
+    sc, *t_inv = _tallied(ctx, sn.to_coeff)
     p_fwd = cost.predict_collectives("ntt", ctx.cm)
     p_inv = cost.predict_collectives("intt", ctx.cm)
     out["ntt"] = _entry(sn.data, np.array_equal(pl.to_numpy(sn.data),
                                                 want_ntt[:, nperm]),
-                        c_fwd, e_fwd, b_fwd, p_fwd)
+                        *t_fwd, p_fwd)
     out["intt"] = _entry(sc.data, np.array_equal(pl.to_numpy(sc.data), x[:, cperm]),
-                         c_inv, e_inv, b_inv, p_inv)
+                         *t_inv, p_inv)
 
     # BConv at the two pipeline shapes: ModUp-like (few → many limbs) and
     # ModDown-like (many → few); the method flips across cluster maps
@@ -190,36 +216,42 @@ def _prim_checks(ctx, p, rng, device) -> dict:
         xs = rows(src)
         want = pl.to_numpy(bconv_ops.bconv(pl.to_tensor(xs, dev), src, dst))
         spc = D.shard_poly(pl.RnsPoly(pl.to_tensor(xs, dev), src, pl.COEFF), ctx)
-        got, c, e, b = _tallied(ctx, lambda: bc.bconv_raw(spc.data, src, dst))
+        got, *tallies = _tallied(ctx, lambda: bc.bconv_raw(spc.data, src, dst))
         pred = cost.predict_collectives("bconv", ctx.cm, n_in=len(src),
                                         n_out=len(dst), N=N)
         out[tag] = _entry(got, np.array_equal(pl.to_numpy(got), want[:, cperm]),
-                          c, e, b, pred,
+                          *tallies, pred,
                           method=cost.bconv_method(ctx.cm, len(src), len(dst), N=N))
 
     # slot-parallel automorphism (the AutoU of AutoU∘KS)
     g = pl.galois_elt(1, N)
     want_auto = want_ntt[:, pl.automorphism_perm(N, g)]
-    sa, c, e, b = _tallied(
+    sa, *tallies = _tallied(
         ctx, lambda: pl.RnsPoly(sn.data, basis, pl.NTT).automorphism_by_gelt(g))
     out["auto"] = _entry(sa.data, np.array_equal(pl.to_numpy(sa.data),
                                                  want_auto[:, nperm]),
-                         c, e, b, cost.predict_collectives("auto", ctx.cm))
+                         *tallies, cost.predict_collectives("auto", ctx.cm))
+    D = ctx.mesh.n_parts
     for op, res in out.items():
         assert res["exact"], (ctx.cm.name, op)
         assert res["counts_match"], (ctx.cm.name, op, res)
+        ell = len(p.q) if op in ("ntt", "intt", "auto") else 0
+        assert res["part_bytes"] == part_bytes_closed_form(
+            op.split("_")[0], ell, N, D), (ctx.cm.name, op, res["part_bytes"])
     return out
 
 
-def _pipeline_run(cm, p, ks, ct1, ct2, device) -> dict:
-    """hmult → rescale → hoisted rotations [1, 2] under dist_scope: digests
-    of the unsharded outputs, both collective tallies and the bytes moved."""
+def _pipeline_run(cm, p, ks, ct1, ct2, device, devices=None) -> dict:
+    """hmult → rescale → hoisted rotations [1, 2] under dist_scope (on
+    ``devices``' parts when given): digests of the unsharded outputs, both
+    collective tallies and the bytes moved between blocks and between
+    parts."""
     from repro_torch.core import ckks
     from repro_torch.core import distributed as D
     from repro_torch.core import keys as keysm
     from repro_torch.kernels import config as kcfg
 
-    with D.dist_scope(cm, device=device) as ctx:
+    with D.dist_scope(cm, device=device, devices=devices) as ctx:
         dk = D.shard_keyset(ks, ctx)
         d1 = D.shard_ciphertext(ct1, ctx)
         d2 = D.shard_ciphertext(ct2, ctx)
@@ -229,16 +261,24 @@ def _pipeline_run(cm, p, ks, ct1, ct2, device) -> dict:
         drots = ckks.hrot_hoisted(dm, [1, 2], dk)
         counts = kcfg.collectives_since(before)
         executed, nbytes = ctx.mesh.since(snap)
+        part_bytes = ctx.mesh.parts_since(snap)
         um = D.unshard_ciphertext(dm, ctx)
         urots = [D.unshard_ciphertext(r, ctx) for r in drots]
     assert D.dist_active() is None
     return {"digests": pipeline_digests(um, urots, keysm.decrypt(um, ks.sk)),
-            "collectives": counts, "executed": executed, "bytes": nbytes}
+            "collectives": counts, "executed": executed, "bytes": nbytes,
+            "part_bytes": part_bytes}
+
+
+def maps_for_parts(n: int, D: int) -> list:
+    """The maps of ``n`` shards whose block size D parts split."""
+    return [cm for cm in _maps_for(n) if cm.block_size % D == 0]
 
 
 def run_suite(n: int, N: int = 256, device="cuda", maps=None,
-              reference: dict | None = None) -> dict:
-    """Every map of ``n`` shards (or ``maps``): primitives, then the
+              reference: dict | None = None, devices=None) -> dict:
+    """Every map of ``n`` shards (or ``maps``) — on ``devices``' parts,
+    every such map whose block size they divide: primitives, then the
     pipeline, whose digests must equal ``reference`` (the single-device
     eager engine's, computed here when not given)."""
     from repro_torch.core import distributed as D
@@ -250,17 +290,19 @@ def run_suite(n: int, N: int = 256, device="cuda", maps=None,
     ks, ct1, ct2 = _make_inputs(p, device=device)
     if reference is None:
         reference = reference_pipeline(p, ks, ct1, ct2, "eager")
+    parts = len(devices) if devices else 1
     out: dict = {"n_shards": n, "N": N, "L": len(p.q), "device": str(device),
+                 "devices": [str(d) for d in devices] if devices else None,
                  "maps": []}
     rng = np.random.default_rng(11)
-    for cm in maps or _maps_for(n):
+    for cm in maps or maps_for_parts(n, parts):
         entry: dict = {"map": cm.name, "cs": cm.block_size,
                        "lc": cm.n_limb_clusters}
         t0 = time.perf_counter()
-        with D.dist_scope(cm, device=device) as ctx:
+        with D.dist_scope(cm, device=device, devices=devices) as ctx:
             entry["prims"] = _prim_checks(ctx, p, rng, device)
         t1 = time.perf_counter()
-        entry["pipeline"] = _pipeline_run(cm, p, ks, ct1, ct2, device)
+        entry["pipeline"] = _pipeline_run(cm, p, ks, ct1, ct2, device, devices)
         entry["pipeline_exact"] = entry["pipeline"]["digests"] == reference
         print(f"  {cm.name}: prims {t1 - t0:.2f}s pipeline "
               f"{time.perf_counter() - t1:.2f}s", file=sys.stderr, flush=True)
@@ -417,10 +459,21 @@ def main(argv=None) -> int:
                     choices=("correctness", "traffic", "suite", "bench"))
     ap.add_argument("args", type=int, nargs="*")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="parts the mesh's coefficient axis is split into (suite)")
+    ap.add_argument("--distinct", action="store_true",
+                    help="the parts on cuda:0 … cuda:D−1, not on --device")
     a = ap.parse_args(argv)
     n, extra = a.n_shards, a.args
+    devices = None
+    if a.cards > 1 or a.distinct:
+        devices = ([f"cuda:{k}" for k in range(a.cards)] if a.distinct
+                   else [a.device] * a.cards)
+    if devices and a.mode != "suite":
+        ap.error("--cards and --distinct apply to the suite")
     if a.mode == "suite":
-        out = run_suite(n, *(extra[:1] or [256]), device=a.device)
+        out = run_suite(n, *(extra[:1] or [256]),
+                        device=devices[0] if devices else a.device, devices=devices)
     elif a.mode == "bench":
         out = run_bench(n, *(extra[:2] or [2048]), device=a.device)
     elif a.mode == "traffic":

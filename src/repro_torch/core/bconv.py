@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels.bconv import ops as bconv_ops
 
 from . import const_cache
+from . import parts as _parts
 from . import poly as pl
 from . import trace
 
@@ -100,15 +101,18 @@ def centered_lift_single(x: torch.Tensor, src_q: int,
 
     Values in [0, q₁) are centered to (-q₁/2, q₁/2] and embedded exactly mod
     each dst prime.  x: (…, N) int32 → (…, K, N) int32, vectorized over the
-    dst axis with a staged (K, 1) prime column.
+    dst axis with a staged (K, 1) prime column; position-wise, so on each
+    part of a multi-part value.
     """
-    pv = const_cache.device_q(tuple(dst), x.device)
-    xe = x[..., None, :].to(torch.int64)               # (…, 1, N) vs (K, 1)
-    is_neg = xe > src_q // 2                           # maps to negative lift
-    pos = xe % pv
-    neg_mag = (src_q - xe) % pv                        # |value| when negative
-    neg = torch.where(neg_mag == 0, neg_mag, pv - neg_mag)
-    return torch.where(is_neg, neg, pos).to(torch.int32)
+    def lift(t: torch.Tensor) -> torch.Tensor:
+        pv = const_cache.device_q(tuple(dst), t.device)
+        xe = t[..., None, :].to(torch.int64)           # (…, 1, N) vs (K, 1)
+        is_neg = xe > src_q // 2                       # maps to negative lift
+        pos = xe % pv
+        neg_mag = (src_q - xe) % pv                    # |value| when negative
+        neg = torch.where(neg_mag == 0, neg_mag, pv - neg_mag)
+        return torch.where(is_neg, neg, pos).to(torch.int32)
+    return _parts.on_each(x, lift)
 
 
 # ----------------------------------------------------------------------------
@@ -142,12 +146,11 @@ def mod_up_digit(digit: pl.RnsPoly, full_q: tuple[int, ...],
             order.append(nd + next(it))
         return np.array(order, dtype=np.int64)
 
-    perm = const_cache.device_table(
-        ("modup_perm", digit.basis, tuple(full_q), tuple(p)), build_perm,
-        digit.device)
+    key = ("modup_perm", digit.basis, tuple(full_q), tuple(p))
     stacked = torch.cat([digit_ntt.data, conv_ntt.data], dim=-2)
-    return pl.RnsPoly(stacked.index_select(-2, perm),
-                      tuple(full_q) + tuple(p), pl.NTT)
+    return pl.RnsPoly(_parts.on_each(stacked, lambda t: t.index_select(
+        -2, const_cache.device_table(key, build_perm, t.device))),
+        tuple(full_q) + tuple(p), pl.NTT)
 
 
 def mod_down(x: pl.RnsPoly, q_basis: tuple[int, ...],

@@ -165,6 +165,33 @@ def device_four_step_consts(basis: tuple[int, ...], N: int, R: int,
     return _cache.get((("four_step", basis, N, R), str(dev)), stage)
 
 
+def device_four_step_part(basis: tuple[int, ...], N: int, R: int, k: int,
+                          D: int, device) -> tuple[nttm.FourStepConsts,
+                                                   nttm.FourStepConsts]:
+    """The four-step tables of part k of a distributed mesh whose
+    coefficient axis is split over D parts, as (column-phase, row-phase)
+    tables on ``device``.  Part k holds the columns [k·C/D, (k+1)·C/D) of
+    the R × C view in the coefficient layout and the rows [k·R/D, (k+1)·R/D)
+    in the NTT layout, so the phase kernels run on it as on a ring of
+    C/D columns (its slice of the twiddles, staged once per part and card)
+    or of R/D rows (whose row transform reads no row index).  One part:
+    the whole ring's tables, twice."""
+    fc = device_four_step_consts(basis, N, R, device)
+    if D == 1:
+        return fc, fc
+    if fc.C % D or fc.R % D:
+        raise ValueError(f"a {fc.R}×{fc.C} four-step does not split into {D} parts")
+
+    def stage():
+        w = fc.C // D
+        cols = {f: getattr(fc, f)[:, :, k * w:(k + 1) * w].contiguous()
+                for f in ("twiddle", "twiddle_shoup", "twiddle_inv",
+                          "twiddle_inv_shoup")}
+        return fc._replace(C=w, **cols), fc._replace(R=fc.R // D)
+    return _cache.get((("four_step_part", tuple(basis), N, R, k, D),
+                       str(device_of(device))), stage)
+
+
 def staged_bytes(kind: str, device) -> int:
     """Device bytes held by the staged entries of one kind ("four_step",
     "ntt", "bconv", ...) on ``device``."""

@@ -65,6 +65,7 @@ from repro_torch.kernels.bconv import ops as bconv_ops
 from repro_torch.kernels.ntt import ops as ntt_ops
 
 from . import const_cache
+from . import parts as _parts
 from . import cost_model as _cost
 from . import ntt as nttm
 from .mapping import ClusterMap
@@ -77,19 +78,37 @@ AXES = ("limb", "coef")
 # ----------------------------------------------------------------------------
 
 class Mesh:
-    """``lc × cs`` logical shards on one device, axes ("limb", "coef").
+    """``lc × cs`` logical shards, axes ("limb", "coef"), on one device or
+    split over a sequence of ``D`` devices along "coef".
 
-    Sharded values are (lc, cs, …) tensors, dim 0 the limb cluster i and
-    dim 1 the core j of the cluster; the rest is one block's local shape.
+    On one device sharded values are (lc, cs, …) tensors, dim 0 the limb
+    cluster i and dim 1 the core j of the cluster; the rest is one block's
+    local shape.  On ``D`` devices (``D`` divides ``cs``; repeats allowed:
+    ``["cuda:0"] * 4`` is four parts of one card) part k holds the cores
+    k·cs/D … (k+1)·cs/D − 1 of every limb cluster, and the blocks are a list
+    of ``D`` (lc, cs/D, …) tensors, one per part on its device.  The
+    collectives along "limb" stay inside each part; those along "coef" copy
+    chunks between parts (``Tensor.to``: a peer copy between distinct
+    cards, ordered against both cards' current streams).
     """
 
     def __init__(self, limb: int, coef: int, device="cuda"):
         if limb < 1 or coef < 1:
             raise ValueError(f"mesh axes must be ≥ 1, got limb={limb}, coef={coef}")
+        devs = ((device,) if isinstance(device, (str, torch.device))
+                else tuple(device))
+        if not devs or coef % len(devs):
+            raise ValueError(f"{len(devs)} parts do not split the coef axis of "
+                             f"{coef} cores")
         self.shape = {"limb": int(limb), "coef": int(coef)}
-        self.device = torch.device(device)
+        self.devices = tuple(torch.device(d) for d in devs)
+        for d in self.devices:
+            if d.type == "cuda" and not (torch.cuda.is_available() and (
+                    d.index is None or d.index < torch.cuda.device_count())):
+                raise RuntimeError(f"mesh device {d}: no such CUDA card here")
         self._count: collections.Counter = collections.Counter()
         self._bytes: collections.Counter = collections.Counter()
+        self._part_bytes: collections.Counter = collections.Counter()
 
     @property
     def lc(self) -> int:
@@ -99,23 +118,58 @@ class Mesh:
     def cs(self) -> int:
         return self.shape["coef"]
 
+    @property
+    def n_parts(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        """The device of a one-part mesh (a multi-part mesh has ``devices``)."""
+        if self.n_parts > 1:
+            raise _parts.PartsError(f"{self} spans {self.n_parts} parts: read devices")
+        return self.devices[0]
+
     def __repr__(self) -> str:
-        return f"Mesh(limb={self.lc}, coef={self.cs}, device={self.device})"
+        where = (self.devices[0] if self.n_parts == 1
+                 else [str(d) for d in self.devices])
+        return f"Mesh(limb={self.lc}, coef={self.cs}, device={where})"
 
     # -- placement ------------------------------------------------------------
-    def check_device(self, t: torch.Tensor) -> None:
-        d = self.device
+    def check_device(self, t: torch.Tensor, part: int = 0) -> None:
+        d = self.devices[part]
         if t.device.type != d.type or (d.index is not None
                                        and t.device.index != d.index):
-            raise ValueError(f"operand on {t.device}, mesh on {d}")
+            raise ValueError(f"operand on {t.device}, mesh part {part} on {d}")
 
-    def place(self, x: torch.Tensor, limb_sharded: bool) -> torch.Tensor:
-        """The blocks of a global (…, ℓ, N) tensor as a (lc, cs, B, ℓ_loc,
-        N/cs) view (B the leading dims flattened): limbs split over "limb"
-        when ``limb_sharded``, else every cluster's view holds all ℓ."""
-        self.check_device(x)
+    def part_devices(self, x) -> tuple[torch.device, ...]:
+        """The devices of ``x``'s parts, checked against the mesh's: a plain
+        tensor on a one-part mesh, ``n_parts`` parts on a multi-part one."""
+        ps = _parts.parts_of(x)
+        if len(ps) != self.n_parts:
+            raise _parts.PartsError(f"a value in {len(ps)} part(s) on {self}")
+        for k, p in enumerate(ps):
+            self.check_device(p, k)
+        return tuple(p.device for p in ps)
+
+    def split(self, x: torch.Tensor):
+        """A global tensor as the mesh's parts (on a one-part mesh, on its
+        device)."""
+        return _parts.split(x, self.devices)
+
+    def join(self, x) -> torch.Tensor:
+        """The global tensor of a value on the mesh's first device."""
+        return _parts.join(x, self.devices[0])
+
+    def each(self, fn, blocks, *per_part):
+        """``fn(blocks, *args)`` on every part: ``per_part`` are lists of one
+        argument per part."""
+        if isinstance(blocks, list):
+            return [fn(b, *a) for b, *a in zip(blocks, *per_part)]
+        return fn(blocks, *(a[0] for a in per_part))
+
+    @staticmethod
+    def _place(x: torch.Tensor, limb_sharded: bool, lc: int, cs: int) -> torch.Tensor:
         ell, N = x.shape[-2:]
-        lc, cs = self.lc, self.cs
         xv = x.reshape(-1, ell, N)
         B = xv.shape[0]
         if limb_sharded:
@@ -123,10 +177,20 @@ class Mesh:
         return (xv.reshape(B, ell, cs, N // cs).permute(2, 0, 1, 3)
                 .unsqueeze(0).expand(lc, cs, B, ell, N // cs))
 
-    def collect(self, blocks: torch.Tensor, limb_sharded: bool,
-                lead: tuple[int, ...]) -> torch.Tensor:
-        """The global (*lead, ℓ, N) tensor of (lc, cs, B, ℓ_loc, n_loc)
-        blocks; a replicated operand is read from limb cluster 0."""
+    def place(self, x, limb_sharded: bool):
+        """The blocks of a global (…, ℓ, N) value as a (lc, cs, B, ℓ_loc,
+        N/cs) view (B the leading dims flattened), or on a multi-part mesh a
+        list of each part's (lc, cs/D, B, ℓ_loc, N/cs) view: limbs split over
+        "limb" when ``limb_sharded``, else every cluster's view holds all ℓ."""
+        self.part_devices(x)
+        m = self.cs // self.n_parts
+        if self.n_parts == 1:
+            return self._place(x, limb_sharded, self.lc, m)
+        return [self._place(p, limb_sharded, self.lc, m) for p in x.parts]
+
+    @staticmethod
+    def _collect(blocks: torch.Tensor, limb_sharded: bool,
+                 lead: tuple[int, ...]) -> torch.Tensor:
         lc, cs, B, ell_loc, n = blocks.shape
         if limb_sharded:
             g = blocks.permute(2, 0, 3, 1, 4).reshape(B, lc * ell_loc, cs * n)
@@ -134,55 +198,126 @@ class Mesh:
             g = blocks[0].permute(1, 2, 0, 3).reshape(B, ell_loc, cs * n)
         return g.reshape(*lead, g.shape[-2], g.shape[-1])
 
+    def collect(self, blocks, limb_sharded: bool, lead: tuple[int, ...]):
+        """The global (*lead, ℓ, N) value of (lc, cs, B, ℓ_loc, n_loc)
+        blocks (a list of parts: their :class:`Parts`); a replicated operand
+        is read from limb cluster 0."""
+        if isinstance(blocks, list):
+            return _parts.Parts(self._collect(b, limb_sharded, lead) for b in blocks)
+        return self._collect(blocks, limb_sharded, lead)
+
     # -- collectives -------------------------------------------------------------
     def _axis(self, axis: str) -> int:
         if axis not in AXES:
             raise ValueError(f"unknown mesh axis {axis!r} — one of {AXES}")
         return AXES.index(axis)
 
-    def _record(self, kind: str, nbytes: int) -> None:
+    def _record(self, kind: str, nbytes: int, part_bytes: int = 0) -> None:
         self._count[kind] += 1
         self._bytes[kind] += int(nbytes)
+        if self.n_parts > 1:
+            self._part_bytes[kind] += int(part_bytes)
 
-    def all_to_all(self, x: torch.Tensor, axis: str, split: int,
-                   concat: int) -> torch.Tensor:
+    @staticmethod
+    def _carry(x: torch.Tensor, device) -> tuple[torch.Tensor, int]:
+        """A chunk of another part on ``device`` and the bytes it carried; a
+        replicated chunk (a limb-cluster dim of stride 0: every cluster
+        holds the same words) travels once and is expanded on arrival."""
+        replicated = x.shape[0] > 1 and x.stride(0) == 0
+        t = x[:1] if replicated else x
+        if t.device != device:
+            t = t.to(device, non_blocking=True)
+        nbytes = t.numel() * t.element_size()
+        return (t.expand(x.shape) if replicated else t), nbytes
+
+    def all_to_all(self, x, axis: str, split: int, concat: int):
         """Tiled all-to-all along ``axis``: block a splits its local dim
         ``split`` into n chunks and sends chunk a′ to block a′, which
         concatenates what it receives along its local dim ``concat`` in the
         order of the senders.  ``split``/``concat`` are negative local dims.
-        A new buffer; each block moves (n − 1)/n of its words to others."""
-        A, n = self._axis(axis), x.shape[self._axis(axis)]
-        s, c = x.dim() + split, x.dim() + concat
+        A new buffer; each block moves (n − 1)/n of its words to others.  On
+        a multi-part mesh ``x`` is the list of parts' blocks; along "coef"
+        each part sends every other part its chunks (a replicated operand's
+        once for all limb clusters, :meth:`_carry`)."""
+        xs = x if isinstance(x, list) else [x]
+        A, x0 = self._axis(axis), xs[0]
+        n = x0.shape[A] * (len(xs) if A == 1 else 1)
+        s, c = x0.dim() + split, x0.dim() + concat
         if split >= 0 or concat >= 0 or s == c or s < 2 or c < 2:
             raise ValueError(f"all_to_all: split {split}, concat {concat} must "
                              "be distinct negative local dims")
-        if x.shape[s] % n:
-            raise ValueError(f"all_to_all: dim {split} of {tuple(x.shape)} "
+        if x0.shape[s] % n:
+            raise ValueError(f"all_to_all: dim {split} of {tuple(x0.shape)} "
                              f"does not split over {n} blocks")
-        y = x.unflatten(s, (n, x.shape[s] // n))          # dim s: destination
+        nbytes = sum(t.numel() for t in xs) * x0.element_size()
+        # dim s: the destination block, then its chunk
+        ys = [t.unflatten(s, (n, t.shape[s] // n)) for t in xs]
+        carried = 0
+        if A == 0 or len(xs) == 1:              # every exchange inside a part
+            out = [self._a2a_finish(y, A, s, c) for y in ys]
+        else:
+            m = n // len(xs)
+            out = []
+            for k2, dev in enumerate(self.devices):
+                got = []
+                for k, y in enumerate(ys):
+                    piece = y.narrow(s, k2 * m, m)
+                    if k != k2:
+                        piece, b = self._carry(piece, dev)
+                        carried += b
+                    got.append(piece)
+                out.append(self._a2a_finish(torch.cat(got, dim=A), A, s, c))
+        self._record("all_to_all", nbytes * (n - 1) // n, carried)
+        return out if isinstance(x, list) else out[0]
+
+    @staticmethod
+    def _a2a_finish(y: torch.Tensor, A: int, s: int, c: int) -> torch.Tensor:
+        """Dim A the senders and dim s the receivers → the received chunks
+        concatenated along ``c`` in the senders' order, a new buffer."""
         c1 = c + 1 if c > s else c
         y = y.transpose(A, s)                             # dim s: source
         dst = c1 - 1 if c1 > s else c1                    # source before concat
         y = y.movedim(s, dst).contiguous()
-        out = y.flatten(dst, dst + 1)
-        self._record("all_to_all", x.numel() * x.element_size() * (n - 1) // n)
-        return out
+        return y.flatten(dst, dst + 1)
 
-    def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    def all_gather(self, x, axis: str, dim: int):
         """Tiled all-gather along ``axis``: every block receives the blocks
         of its group concatenated along its local dim ``dim`` (negative), in
         their order.  A new buffer per block; each block receives n − 1
-        blocks' words."""
-        A, n = self._axis(axis), x.shape[self._axis(axis)]
-        if dim >= 0 or x.dim() + dim < 2:
+        blocks' words.  On a multi-part mesh ``x`` is the list of parts'
+        blocks; along "coef" each part receives every other part's blocks
+        once (a replicated operand's once for all limb clusters)."""
+        xs = x if isinstance(x, list) else [x]
+        A, x0 = self._axis(axis), xs[0]
+        n = x0.shape[A] * (len(xs) if A == 1 else 1)
+        if dim >= 0 or x0.dim() + dim < 2:
             raise ValueError(f"all_gather: dim {dim} must be a negative local dim")
-        d = x.dim() + dim
-        # (…, n_src, …): the group's blocks in order next to dim d
+        d = x0.dim() + dim
+        nbytes = sum(t.numel() for t in xs) * x0.element_size()
+        carried = 0
+        if A == 0 or len(xs) == 1:
+            out = [self._gather_finish(t, A, d, t.shape[A]) for t in xs]
+        else:
+            out = []
+            for k2, dev in enumerate(self.devices):
+                got = []
+                for k, t in enumerate(xs):
+                    if k != k2:
+                        t, b = self._carry(t, dev)
+                        carried += b
+                    got.append(t)
+                out.append(self._gather_finish(torch.cat(got, dim=A), A, d,
+                                               xs[k2].shape[A]))
+        self._record("all_gather", nbytes * (n - 1), carried)
+        return out if isinstance(x, list) else out[0]
+
+    @staticmethod
+    def _gather_finish(x: torch.Tensor, A: int, d: int, m: int) -> torch.Tensor:
+        """The group's blocks (dim A) concatenated along dim d, for the m
+        receiving blocks of this part, a new buffer."""
         g = x.movedim(A, d - 1 if A < d else d)
         g = g.flatten(d - 1, d) if A < d else g.flatten(d, d + 1)
-        out = g.unsqueeze(A).expand(*x.shape[:A], n, *g.shape[A:]).contiguous()
-        self._record("all_gather", x.numel() * x.element_size() * (n - 1))
-        return out
+        return g.unsqueeze(A).expand(*x.shape[:A], m, *g.shape[A:]).contiguous()
 
     # -- the executed tally ---------------------------------------------------
     def executed(self) -> dict:
@@ -190,25 +325,36 @@ class Mesh:
         return dict(self._count)
 
     def bytes_moved(self) -> dict:
-        """Bytes the executed collectives moved between distinct blocks."""
+        """Bytes the executed collectives moved between distinct blocks,
+        whatever part each block is on."""
         return dict(self._bytes)
 
-    def snapshot(self) -> tuple[dict, dict]:
-        return self.executed(), self.bytes_moved()
+    def bytes_between_parts(self) -> dict:
+        """Bytes the executed collectives copied from one part to another,
+        per kind (none on a one-part mesh)."""
+        return dict(self._part_bytes)
 
-    def since(self, snap: tuple[dict, dict]) -> tuple[dict, dict]:
+    def snapshot(self) -> tuple[dict, dict, dict]:
+        return self.executed(), self.bytes_moved(), self.bytes_between_parts()
+
+    def since(self, snap) -> tuple[dict, dict]:
         """(counts, bytes) executed since a :meth:`snapshot` (kinds with no
         change omitted)."""
-        c0, b0 = snap
-        counts = {k: v - c0.get(k, 0) for k, v in self._count.items()
-                  if v - c0.get(k, 0)}
-        nbytes = {k: v - b0.get(k, 0) for k, v in self._bytes.items()
-                  if v - b0.get(k, 0)}
-        return counts, nbytes
+        c0, b0 = snap[0], snap[1]
+        return _delta(self._count, c0), _delta(self._bytes, b0)
+
+    def parts_since(self, snap) -> dict:
+        """Bytes between parts since a :meth:`snapshot`, per kind."""
+        return _delta(self._part_bytes, snap[2])
 
     def reset(self) -> None:
         self._count.clear()
         self._bytes.clear()
+        self._part_bytes.clear()
+
+
+def _delta(now: collections.Counter, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in now.items() if v - before.get(k, 0)}
 
 
 # ----------------------------------------------------------------------------
@@ -266,61 +412,80 @@ def limbdup_beneficial(n_in_limbs: int, n_out_limbs: int, cm: ClusterMap) -> boo
 # Shard bodies (shared by the standalone programs and the scope's engine)
 # ----------------------------------------------------------------------------
 
-def _fourstep(mesh: Mesh, x: torch.Tensor, fc: nttm.FourStepConsts,
-              forward: bool, limb_sharded: bool) -> torch.Tensor:
+def _fourstep(mesh: Mesh, x, fc: nttm.FourStepConsts, part_fcs: list,
+              forward: bool, limb_sharded: bool):
     """The four-step (i)NTT on every block: one phase, ONE all-to-all along
     "coef" (none at cs = 1), the other phase.  x: global (…, ℓ, N) in the
-    coefficient layout (forward) or the NTT layout (inverse)."""
+    coefficient layout (forward) or the NTT layout (inverse), a tensor or
+    the mesh's parts.  ``fc``: the tables of the whole ring (its R × C
+    split); ``part_fcs``: each part's (column-phase, row-phase) tables
+    (:func:`const_cache.device_four_step_part`)."""
     lead = x.shape[:-2]
     ell = x.shape[-2]
     R, C, cs = fc.R, fc.C, mesh.cs
     limb_block = ell // mesh.lc if limb_sharded else 0
     blocks = mesh.place(x, limb_sharded)
     first, second = ("fwd_col", "fwd_row") if forward else ("inv_row", "inv_col")
-    y = ntt_ops.ntt_phase(blocks, fc, first, limb_block)
+
+    def phase(name):        # each part's column- or row-phase tables
+        return lambda b, t: ntt_ops.ntt_phase(b, t[0] if name.endswith("col") else t[1],
+                                              name, limb_block)
+    y = mesh.each(phase(first), blocks, part_fcs)
     if cs > 1:                                  # the §III-B shuffle
+        if not limb_sharded:    # every cluster computed the same words: send one
+            y = mesh.each(lambda b: b[:1].expand(b.shape), y)
         if forward:     # (R, C/cs) column slices → (R/cs, C) row slices
-            y = mesh.all_to_all(y.unflatten(-1, (R, C // cs)), "coef", -2, -1)
+            y = mesh.all_to_all(mesh.each(lambda b: b.unflatten(-1, (R, C // cs)), y),
+                                "coef", -2, -1)
         else:           # (R/cs, C) row slices → (R, C/cs) column slices
-            y = mesh.all_to_all(y.unflatten(-1, (R // cs, C)), "coef", -1, -2)
-        y = y.flatten(-2)
-    y = ntt_ops.ntt_phase(y, fc, second, limb_block)
+            y = mesh.all_to_all(mesh.each(lambda b: b.unflatten(-1, (R // cs, C)), y),
+                                "coef", -1, -2)
+        y = mesh.each(lambda b: b.flatten(-2), y)
+    y = mesh.each(phase(second), y, part_fcs)
     return mesh.collect(y, limb_sharded, lead)
 
 
-def _bconv_ark(mesh: Mesh, x: torch.Tensor, src, dst) -> torch.Tensor:
+def _bconv_ark(mesh: Mesh, x, src, dst):
     """ARK §V-A: all-to-all along "limb" into coefficient scattering, the
-    full-table product (one launch over every block), all-to-all back."""
+    full-table product (one launch over every block of a part), all-to-all
+    back."""
     lead = x.shape[:-2]
     t = mesh.all_to_all(mesh.place(x, True), "limb", -1, -2)   # (ℓ, n/lc)
-    out = bconv_ops.bconv(t, src, dst)
+    out = mesh.each(lambda b: bconv_ops.bconv(b, src, dst), t)
     out = mesh.all_to_all(out, "limb", -2, -1)                 # (K/lc, n)
     return mesh.collect(out, True, lead)
 
 
-def _bconv_limbdup(mesh: Mesh, x: torch.Tensor, src, dst,
-                   limb_in: bool) -> torch.Tensor:
+def _bconv_limbdup(mesh: Mesh, x, src, dst, limb_in: bool):
     """Limb duplication §V-A: all-gather the inputs along "limb" (none when
     they are replicated already: every cluster reads the same words), each
     limb cluster its own destination rows, outputs born on their owner; one
-    grouped BConv over every limb cluster."""
+    grouped BConv over every limb cluster of a part."""
     lead = x.shape[:-2]
     t = mesh.place(x, limb_in)
     if limb_in and mesh.lc > 1:                 # broadcast within the coef cluster
         t = mesh.all_gather(t, "limb", -2)
-    return mesh.collect(bconv_ops.bconv_grouped(t, src, dst), True, lead)
+    out = mesh.each(lambda b: bconv_ops.bconv_grouped(b, src, dst), t)
+    return mesh.collect(out, True, lead)
 
 
-def _galois(mesh: Mesh, x: torch.Tensor, table: torch.Tensor,
-            limb_sharded: bool) -> torch.Tensor:
+def _galois(mesh: Mesh, x, tables: list, limb_sharded: bool):
     """Slot-parallel AutoU: ONE all-gather along "coef" (none at cs = 1),
-    then each block gathers its outputs through the conjugated table."""
+    then each block gathers its outputs through the conjugated table
+    (``tables``: each part's slice)."""
     lead = x.shape[:-2]
     full = mesh.place(x, limb_sharded)
     if mesh.cs > 1:
         full = mesh.all_gather(full, "coef", -1)
-    out = auto_ops.automorphism_blocks(full, table)
+    out = mesh.each(auto_ops.automorphism_blocks, full, tables)
     return mesh.collect(out, limb_sharded, lead)
+
+
+def _part_fcs(mesh: Mesh, basis: tuple[int, ...], N: int, R: int, devices) -> list:
+    """Each part's (column-phase, row-phase) four-step tables on its card."""
+    D = mesh.n_parts
+    return [const_cache.device_four_step_part(basis, N, R, k, D, dev)
+            for k, dev in enumerate(devices)]
 
 
 # ----------------------------------------------------------------------------
@@ -332,6 +497,9 @@ def dist_ntt(mesh: Mesh, basis: tuple[int, ...], N: int, forward: bool = True):
     both axes in natural order: all-to-all (limbs ↔ coefficients) along
     "coef", the full-row NTT of every block's limbs, all-to-all back."""
     basis = tuple(basis)
+
+    if mesh.n_parts > 1:
+        raise ValueError(f"the baseline NTT program runs on a one-part mesh, not {mesh}")
 
     def program(x: torch.Tensor) -> torch.Tensor:
         ell = x.shape[-2]
@@ -356,9 +524,11 @@ def dist_ntt_fourstep(mesh: Mesh, basis: tuple[int, ...], N: int, R: int,
     layout, the inverse back."""
     basis = tuple(basis)
 
-    def program(x: torch.Tensor) -> torch.Tensor:
-        fc = const_cache.device_four_step_consts(basis, N, R, x.device)
-        return _fourstep(mesh, x, fc, forward, True)
+    def program(x):
+        devices = mesh.part_devices(x)
+        fc = const_cache.device_four_step_consts(basis, N, R, devices[0])
+        return _fourstep(mesh, x, fc, _part_fcs(mesh, basis, N, R, devices),
+                         forward, True)
     return program
 
 
@@ -428,14 +598,18 @@ class dist_scope:
             dk = shard_keyset(keys, ctx)
             dct = shard_ciphertext(ct, ctx)
             out = unshard_ciphertext(ckks.hmult(dct, dct2, dk), ctx)
+
+    ``devices`` (a sequence of D devices, D dividing the block size) splits
+    the mesh's coefficient axis over them: ``["cuda:0", "cuda:1"]``, or
+    ``["cuda:0"] * 4`` for four parts of one card.
     """
 
     def __init__(self, cm: ClusterMap | str, mesh: Mesh | None = None,
-                 device="cuda"):
+                 device="cuda", devices=None):
         if isinstance(cm, str):
             cm = ClusterMap.parse(cm)
         if mesh is None:
-            mesh = cm.make_mesh(device)
+            mesh = cm.make_mesh(device, devices=devices)
         if (mesh.lc, mesh.cs) != (cm.n_limb_clusters, cm.block_size):
             raise ValueError(f"{mesh} does not hold cluster map {cm.name}")
         self.ctx = DistContext(cm=cm, mesh=mesh)
@@ -464,20 +638,24 @@ def _require() -> DistContext:
 # -- scope-boundary layout conversion ----------------------------------------
 
 def shard_poly(p, ctx: DistContext | None = None):
-    """Natural-order RnsPoly → layout-permuted RnsPoly on the mesh's device."""
+    """Natural-order RnsPoly → layout-permuted RnsPoly on the mesh: on its
+    device, or as its parts (part k on card k)."""
     ctx = ctx or _require()
-    data = p.data.to(ctx.mesh.device)
+    mesh = ctx.mesh
+    data = p.data.to(mesh.devices[0])
     perm, _ = _device_layout(p.N, ctx.submodules(p.N), ctx.cs, p.domain,
                              data.device)
-    return type(p)(data.index_select(-1, perm), p.basis, p.domain)
+    return type(p)(mesh.split(data.index_select(-1, perm)), p.basis, p.domain)
 
 
 def unshard_poly(p, ctx: DistContext | None = None):
-    """Layout-permuted RnsPoly → natural-order RnsPoly (same device)."""
+    """Layout-permuted RnsPoly → natural-order RnsPoly (on its device; the
+    parts of a multi-part value joined on the mesh's first device)."""
     ctx = ctx or _require()
+    data = ctx.mesh.join(p.data) if isinstance(p.data, _parts.Parts) else p.data
     _, inv = _device_layout(p.N, ctx.submodules(p.N), ctx.cs, p.domain,
-                            p.data.device)
-    return type(p)(p.data.index_select(-1, inv), p.basis, p.domain)
+                            data.device)
+    return type(p)(data.index_select(-1, inv), p.basis, p.domain)
 
 
 def shard_ciphertext(ct, ctx: DistContext | None = None):
@@ -491,21 +669,18 @@ def unshard_ciphertext(ct, ctx: DistContext | None = None):
 
 
 def shard_eval_key(ek, ctx: DistContext | None = None):
-    """EvalKey with every digit poly permuted into the scope's NTT layout.
+    """EvalKey with every digit poly permuted into the scope's NTT layout
+    (and split into the mesh's parts, each on its card).
 
     The PRNG a-halves are expanded first (natural order, as keygen made
-    them) and stored permuted; the key keeps the layout, so an a-half
-    regenerated after its cache was dropped is permuted too.
+    them) and stored sharded; the key keeps the map, so an a-half
+    regenerated after its cache was dropped is sharded too.
     """
     ctx = ctx or _require()
-    N = ek.b[0].N
-    dev = ctx.mesh.device
-    perm, _ = _device_layout(N, ctx.submodules(N), ctx.cs, "ntt", dev)
-    lay = lambda p: type(p)(p.data.to(dev).index_select(-1, perm), p.basis,
-                            p.domain)
+    lay = functools.partial(shard_poly, ctx=ctx)
     return dataclasses.replace(ek, b=[lay(p) for p in ek.b],
                                _a_cache=[lay(p) for p in ek.a()],
-                               _level_cache=None, layout=perm)
+                               _level_cache=None, layout=lay)
 
 
 def shard_keyset(keys, ctx: DistContext | None = None):
@@ -530,63 +705,87 @@ def _record_prediction(op: str, ctx: DistContext, **kw) -> None:
         _kcfg.count_collective(kind, n, shards=ctx.cm.n_cores)
 
 
-def sharded_ntt(ctx: DistContext, x: torch.Tensor, basis, forward: bool = True):
+def sharded_ntt(ctx: DistContext, x, basis, forward: bool = True):
     """Batched four-step (i)NTT under the scope's mesh — ONE all-to-all.
 
     ``x``: (…, ℓ, N) in the coefficient layout (forward) or the NTT layout
-    (inverse); leading dims ride through as the blocks' batch.
+    (inverse), a tensor or the mesh's parts; leading dims ride through as
+    the blocks' batch.
     """
     basis = tuple(basis)
     N = int(x.shape[-1])
     R = ctx.submodules(N)
     limb_sharded = ctx.limb_sharded(int(x.shape[-2]))
-    key = ("ntt", ctx.mesh, basis, N, R, forward, limb_sharded, x.device)
+    devices = ctx.mesh.part_devices(x)
+    key = ("ntt", ctx.mesh, basis, N, R, forward, limb_sharded, devices)
     prog = _prog_cache.get(key)
     if prog is None:
-        fc = const_cache.device_four_step_consts(basis, N, R, x.device)
-        prog = functools.partial(_fourstep, ctx.mesh, fc=fc, forward=forward,
-                                 limb_sharded=limb_sharded)
+        fc = const_cache.device_four_step_consts(basis, N, R, devices[0])
+        prog = functools.partial(_fourstep, ctx.mesh, fc=fc,
+                                 part_fcs=_part_fcs(ctx.mesh, basis, N, R, devices),
+                                 forward=forward, limb_sharded=limb_sharded)
         _prog_cache[key] = prog
     _record_prediction("ntt" if forward else "intt", ctx)
     return prog(x)
 
 
-def sharded_bconv(ctx: DistContext, x: torch.Tensor, src, dst):
+def sharded_bconv(ctx: DistContext, x, src, dst):
     """Mesh-mapped BConv: ARK / limb duplication / local per
     ``cost_model.bconv_method``.  The q̂⁻¹ pre-scale is the BConvU kernel's
     own: it is limb-local, so scaling after the gather gives the
     reference's bytes.  "local" (every core holds all limbs of its
     coefficients: L_c = 1, or a destination count that does not split over
-    the limb clusters) is a position-wise product on the global tensor, as
-    the reference computes it outside any shard body; zero collectives."""
+    the limb clusters) is a position-wise product on the global tensor (on
+    each part of a multi-part value), as the reference computes it outside
+    any shard body; zero collectives."""
     src, dst = tuple(src), tuple(dst)
     N = int(x.shape[-1])
     method = _cost.bconv_method(ctx.cm, len(src), len(dst), N=N)
     _record_prediction("bconv", ctx, n_in=len(src), n_out=len(dst), N=N)
     if method == "local":
-        return bconv_ops.bconv(x, src, dst)
+        ctx.mesh.part_devices(x)
+        return _parts.on_each(x, lambda t: bconv_ops.bconv(t, src, dst))
     if method == "ark":
         return _bconv_ark(ctx.mesh, x, src, dst)
     return _bconv_limbdup(ctx.mesh, x, src, dst, ctx.limb_sharded(len(src)))
 
 
-def _galois_layout_table(N: int, R: int, g: int, device) -> torch.Tensor:
-    """Device-staged layout-conjugated automorphism table T = L⁻¹∘perm∘L:
+@functools.lru_cache(maxsize=64)
+def _galois_layout_np(N: int, R: int, g: int) -> np.ndarray:
+    """The layout-conjugated automorphism table T = L⁻¹∘perm∘L:
     out_layout[p] = in_layout[T[p]] reproduces φ_g on NTT-layout data."""
-    def build():
-        from . import poly as _pl
-        L = ntt_layout_perm(N, R)
-        Linv = np.empty_like(L)
-        Linv[L] = np.arange(N, dtype=np.int32)
-        return Linv[_pl.automorphism_perm(N, g)[L]].astype(np.int64)
-    return const_cache.device_table(("dist_galois", N, R, g), build, device)
+    from . import poly as _pl
+    L = ntt_layout_perm(N, R)
+    Linv = np.empty_like(L)
+    Linv[L] = np.arange(N, dtype=np.int32)
+    return Linv[_pl.automorphism_perm(N, g)[L]].astype(np.int64)
 
 
-def sharded_galois(ctx: DistContext, x: torch.Tensor, N: int, g: int):
+def _galois_layout_table(N: int, R: int, g: int, device) -> torch.Tensor:
+    """:func:`_galois_layout_np`, device-staged."""
+    return const_cache.device_table(("dist_galois", N, R, g),
+                                    lambda: _galois_layout_np(N, R, g), device)
+
+
+def _galois_part_tables(N: int, R: int, g: int, devices) -> list:
+    """Each part's slice of the table, positions [k·N/D, (k+1)·N/D), staged
+    on its card (the whole table on a one-part mesh)."""
+    D = len(devices)
+    if D == 1:
+        return [_galois_layout_table(N, R, g, devices[0])]
+    n = N // D
+    return [const_cache.device_table(
+        ("dist_galois_part", N, R, g, k, D),
+        lambda k=k: _galois_layout_np(N, R, g)[k * n:(k + 1) * n], dev)
+        for k, dev in enumerate(devices)]
+
+
+def sharded_galois(ctx: DistContext, x, N: int, g: int):
     """Slot-parallel automorphism: ONE all-gather along "coef", then each
     block gathers its outputs through the layout-conjugated perm table."""
     R = ctx.submodules(N)
-    T = _galois_layout_table(N, R, g, x.device)
+    devices = ctx.mesh.part_devices(x)
+    tables = _galois_part_tables(N, R, g, devices)
     limb_sharded = ctx.limb_sharded(int(x.shape[-2]))
     key = ("auto", ctx.mesh, N, limb_sharded)
     prog = _prog_cache.get(key)
@@ -594,4 +793,4 @@ def sharded_galois(ctx: DistContext, x: torch.Tensor, N: int, g: int):
         prog = functools.partial(_galois, ctx.mesh, limb_sharded=limb_sharded)
         _prog_cache[key] = prog
     _record_prediction("auto", ctx)
-    return prog(x, T)
+    return prog(x, tables)

@@ -132,7 +132,8 @@ def check_basis_match(b1: tuple[int, ...], b2: tuple[int, ...],
 def check_residues(data, basis: tuple[int, ...], op: str) -> None:
     """Every limb residue must sit in [0, q_i) — full mode only.
 
-    ``data`` is an (…, ℓ, N) int32 torch tensor on any device; the scan is
+    ``data`` is an (…, ℓ, N) int32 torch tensor on any device (or the parts
+    of a multi-part value of the distributed engine, each scanned); the scan is
     one vectorized device compare + a host sync of a single boolean, so full
     mode costs one extra pass over each checked operand.  Residues are
     non-negative int32 (every prime is < 2³⁰), so a flipped bit 31 reads as
@@ -141,12 +142,14 @@ def check_residues(data, basis: tuple[int, ...], op: str) -> None:
     if _mode != "full":
         return
     import torch
-    q = torch.tensor(basis, dtype=torch.int64,
-                     device=data.device).reshape(-1, 1)
-    d = data.to(torch.int64)
-    if bool(((d < 0) | (d >= q)).any()):
-        raise ResidueRange(f"{op}: limb residue out of [0, q) range "
-                           f"(corrupted ciphertext data)")
+    from .parts import parts_of
+    for part in parts_of(data):
+        q = torch.tensor(basis, dtype=torch.int64,
+                         device=part.device).reshape(-1, 1)
+        d = part.to(torch.int64)
+        if bool(((d < 0) | (d >= q)).any()):
+            raise ResidueRange(f"{op}: limb residue out of [0, q) range "
+                               f"(corrupted ciphertext data)")
 
 
 def check_ciphertext(ct, op: str) -> None:

@@ -21,11 +21,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
 
 from . import const_cache
+from . import parts as _parts
 from . import poly as pl
 from .params import CkksParams
 
@@ -55,21 +57,22 @@ class EvalKey:
     basis: tuple[int, ...]           # Q_L ∪ P
     _a_cache: list[pl.RnsPoly] | None = None
     _level_cache: dict | None = None
-    # index permutation of a sharded key's coefficients (the distributed
-    # engine's NTT layout, core.distributed.shard_eval_key), applied to the
-    # a-halves as they are regenerated; None: natural order
-    layout: torch.Tensor | None = None
+    # map of a natural-order digit poly into a sharded key's form (the
+    # distributed engine's NTT layout and its mesh's parts,
+    # core.distributed.shard_eval_key), applied to the a-halves as they are
+    # regenerated; None: natural order
+    layout: Callable[[pl.RnsPoly], pl.RnsPoly] | None = None
 
     def a(self) -> list[pl.RnsPoly]:
         """Regenerate the a-halves from the seed (PRNG evk, §V-B), on the
-        device of the b-halves, in the key's layout."""
+        device of the b-halves (of their first part), in the key's layout."""
         if self._a_cache is None:
             rng = np.random.default_rng(self.seed)
+            dev = _parts.devices_of(self.b[0].data)[0]
             a = [pl.uniform_poly(rng, self.basis, self.b[0].N, pl.NTT,
-                                 device=self.b[0].device) for _ in self.b]
+                                 device=dev) for _ in self.b]
             if self.layout is not None:
-                a = [pl.RnsPoly(p.data.index_select(-1, self.layout), p.basis,
-                                p.domain) for p in a]
+                a = [self.layout(p) for p in a]
             self._a_cache = a
         return self._a_cache
 
@@ -82,9 +85,10 @@ class EvalKey:
         key = (level_basis, ndig)
         out = self._level_cache.get(key)
         if out is None:
-            take = torch.tensor(idx, dtype=torch.int64, device=self.b[0].device)
-            sl = lambda p: pl.RnsPoly(p.data.index_select(-2, take),
-                                      level_basis, p.domain)
+            take = torch.tensor(idx, dtype=torch.int64)
+            sl = lambda p: pl.RnsPoly(_parts.on_each(
+                p.data, lambda t: t.index_select(-2, take.to(t.device))),
+                level_basis, p.domain)
             out = [(sl(aj), sl(bj))
                    for aj, bj in zip(self.a()[:ndig], self.b[:ndig])]
             if len(self._level_cache) >= 8:

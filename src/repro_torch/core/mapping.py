@@ -89,11 +89,13 @@ class ClusterMap:
         raise ValueError(f"unparseable cluster map {s!r}")
 
     # -- the port's mesh ----------------------------------------------------------
-    def make_mesh(self, device="cuda"):
+    def make_mesh(self, device="cuda", devices=None):
         """A mesh of (n_limb_clusters, block_size) logical shards, axes
-        ("limb", "coef"), on one ``device``."""
+        ("limb", "coef"), on one ``device``, or with ``devices`` its
+        coefficient axis split over a sequence of them."""
         from .distributed import Mesh  # lazy: distributed imports this module
-        return Mesh(self.n_limb_clusters, self.block_size, device)
+        return Mesh(self.n_limb_clusters, self.block_size,
+                    device if devices is None else devices)
 
     # -- physical NoP geometry (for the analytical cost model) -------------------
     def core_xy(self, core: int) -> tuple[int, int]:

@@ -21,7 +21,10 @@ transform and ``index_select``, as the reference's ``RnsPoly`` does.  Both
 give the same canonical residues.  Under an active
 :class:`~repro_torch.core.distributed.dist_scope` the NTT, the iNTT and the
 automorphism by a Galois element dispatch to the sharded engine instead (the
-trace is recorded first, then the dispatch, as the reference does).
+trace is recorded first, then the dispatch, as the reference does).  There
+``data`` may be a :class:`~repro_torch.core.parts.Parts` (a mesh split over
+several devices): the ring ops and limb slicing run on each part on its own
+device, and a multi-part value has ``devices``, not one ``device``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from . import const_cache
 from . import guards
 from . import modmath as mm
 from . import ntt as nttm
+from . import parts as _parts
 from . import trace
 from repro_torch.kernels import native
 from repro_torch.kernels.automorphism import ops as auto_ops
@@ -59,8 +63,34 @@ def to_tensor(residues: np.ndarray, device) -> torch.Tensor:
 
 
 def to_numpy(data: torch.Tensor) -> np.ndarray:
-    """int32 residue tensor → u32 numpy array on the host."""
+    """int32 residue tensor (or the parts of one) → u32 numpy array on the
+    host."""
+    if isinstance(data, _parts.Parts):
+        data = _parts.join(data, "cpu")
     return data.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def _ring_op(op: str, basis: tuple[int, ...], scalars, *datas: torch.Tensor):
+    """One ring op on plain tensors of one device: the EFU kernel on card
+    data (operands of different shapes broadcast as on the CPU: the smaller
+    one, an evk digit against a batch of digit extensions, is expanded to a
+    stride-0 view, which the kernel reads in place), int64 modmath on the
+    CPU, int32 out."""
+    if native.on_cuda(*datas):
+        shape = torch.broadcast_shapes(*(d.shape for d in datas))
+        datas = [d if d.shape == shape else d.expand(shape) for d in datas]
+        return elt_ops.eltwise_cuda(op, basis, *datas, scalars=scalars)
+    q = const_cache.device_q(basis, datas[0].device)
+    if op == "subscale":
+        return _ring_op("scale", basis, scalars, _ring_op("sub", basis, None, *datas))
+    if op == "scale":
+        sv = np.asarray(scalars, dtype=np.uint32).reshape(-1)
+        w = const_cache.device_table(("mul_scalar", basis, sv.tobytes()),
+                                     lambda: sv.reshape(-1, 1), datas[0].device)
+        return mm.mulmod(datas[0], w, q).to(torch.int32)
+    fn = {"add": mm.addmod, "sub": mm.submod, "mul": mm.mulmod,
+          "neg": mm.negmod}[op]
+    return fn(*datas, q).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -80,7 +110,15 @@ class RnsPoly:
 
     @property
     def device(self) -> torch.device:
+        """The device of the residues.  A value split over several devices
+        (:class:`~repro_torch.core.parts.Parts`) has none and raises
+        ``PartsError``: read :attr:`devices`."""
         return self.data.device
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        """The devices of the residues' parts, in order (one for a tensor)."""
+        return _parts.devices_of(self.data)
 
     def c(self) -> nttm.NttConsts:
         return consts(self.basis, self.N, self.data.device)
@@ -123,48 +161,34 @@ class RnsPoly:
             raise guards.BasisMismatch(
                 f"RnsPoly.{op}: domain mismatch {self.domain} vs {o.domain}")
 
-    def _new(self, data: torch.Tensor, domain: str | None = None) -> "RnsPoly":
-        return RnsPoly(data.to(torch.int32), self.basis, domain or self.domain)
-
-    def _efu(self, op: str, *others: "RnsPoly", scalars=None,
-             domain: str | None = None) -> "RnsPoly":
-        """``op`` on the EFU kernel (card data), int32 in and out.  Operands
-        of different shapes broadcast as on the CPU: the smaller one (an evk
-        digit against a batch of digit extensions) is expanded to a stride-0
-        view, which the kernel reads in place."""
-        datas = [self.data, *(o.data for o in others)]
-        shape = torch.broadcast_shapes(*(d.shape for d in datas))
-        datas = [d if d.shape == shape else d.expand(shape) for d in datas]
-        data = elt_ops.eltwise_cuda(op, self.basis, *datas, scalars=scalars)
+    def _ring(self, op: str, *others: "RnsPoly", scalars=None,
+              domain: str | None = None) -> "RnsPoly":
+        """``op`` on the operands' residues (:func:`_ring_op`), part by part
+        on a multi-part value, whose operands must hold the same parts."""
+        data = _parts.zip_parts(
+            functools.partial(_ring_op, op, self.basis, scalars),
+            self.data, *(o.data for o in others))
         return RnsPoly(data, self.basis, domain or self.domain)
 
     def __add__(self, o: "RnsPoly") -> "RnsPoly":
         self._check_aligned(o, "add")
         assert self.basis == o.basis and self.domain == o.domain
-        if native.on_cuda(self.data, o.data):
-            return self._efu("add", o)
-        return self._new(mm.addmod(self.data, o.data, self._q()))
+        return self._ring("add", o)
 
     def __sub__(self, o: "RnsPoly") -> "RnsPoly":
         self._check_aligned(o, "sub")
         assert self.basis == o.basis and self.domain == o.domain
-        if native.on_cuda(self.data, o.data):
-            return self._efu("sub", o)
-        return self._new(mm.submod(self.data, o.data, self._q()))
+        return self._ring("sub", o)
 
     def __neg__(self) -> "RnsPoly":
-        if native.on_cuda(self.data):
-            return self._efu("neg")
-        return self._new(mm.negmod(self.data, self._q()))
+        return self._ring("neg")
 
     def __mul__(self, o: "RnsPoly") -> "RnsPoly":
         self._check_aligned(o, "mul")
         assert self.basis == o.basis
         assert self.domain == NTT and o.domain == NTT, "mul requires NTT domain"
         trace.record("elt_mul", int(np.prod(self.data.shape[:-1])), self.N)
-        if native.on_cuda(self.data, o.data):
-            return self._efu("mul", o, domain=NTT)
-        return self._new(mm.mulmod(self.data, o.data, self._q()), NTT)
+        return self._ring("mul", o, domain=NTT)
 
     def mul_scalar(self, scalars: np.ndarray) -> "RnsPoly":
         """Multiply limb i by the constant ``scalars[i]``.
@@ -174,12 +198,7 @@ class RnsPoly:
         its Shoup companions for the EFU's ``scale``, on the CPU as an (ℓ, 1)
         int64 column.
         """
-        if native.on_cuda(self.data):
-            return self._efu("scale", scalars=scalars)
-        sv = np.asarray(scalars, dtype=np.uint32).reshape(-1)
-        w = const_cache.device_table(("mul_scalar", self.basis, sv.tobytes()),
-                                     lambda: sv.reshape(-1, 1), self.device)
-        return self._new(mm.mulmod(self.data, w, self._q()))
+        return self._ring("scale", scalars=scalars)
 
     def sub_scaled(self, o: "RnsPoly", scalars: np.ndarray) -> "RnsPoly":
         """(self − o) · scalars[i] on limb i: the tail of ModDown and of
@@ -187,9 +206,7 @@ class RnsPoly:
         ``(self − o).mul_scalar(scalars)`` on the CPU."""
         self._check_aligned(o, "sub_scaled")
         assert self.basis == o.basis and self.domain == o.domain
-        if native.on_cuda(self.data, o.data):
-            return self._efu("subscale", o, scalars=scalars)
-        return (self - o).mul_scalar(scalars)
+        return self._ring("subscale", o, scalars=scalars)
 
     # -- structure ------------------------------------------------------------
     def limbs(self, idx: slice) -> "RnsPoly":

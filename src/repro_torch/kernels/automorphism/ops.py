@@ -93,7 +93,7 @@ def automorphism_cuda(x: torch.Tensor, perm: torch.Tensor,
             x.data_ptr(), perm.data_ptr(), out.data_ptr(), B, N, rows,
             native.stream_of(x))
     native.check("automorphism", err, "automorphism")
-    config.count_launch("automorphism", "automorphism")
+    config.count_launch("automorphism", "automorphism", device=x.device)
     return out
 
 
@@ -101,10 +101,11 @@ def automorphism_blocks(full: torch.Tensor, table: torch.Tensor) -> torch.Tensor
     """The AutoU gather on every block of a (limb, coef) mesh at once.
 
     ``full``: (lc, cs, B, ℓ, N) int32, each block's rows all-gathered to the
-    whole length N; ``table``: (N,) int64 index table (the Galois map
-    conjugated by the scope's layout).  Block (i, j) writes its n = N/cs
-    outputs out[i, j, b, l, p] = full[i, j, b, l, table[j·n + p]].  Returns
-    (lc, cs, B, ℓ, n) int32.
+    whole length N; ``table``: (cs·n,) int64 index table, the Galois map
+    conjugated by the scope's layout (n = N/cs, or on one part of a mesh
+    split over several, that part's slice of the map for its cs blocks).
+    Block (i, j) writes its n outputs out[i, j, b, l, p] = full[i, j, b, l,
+    table[j·n + p]].  Returns (lc, cs, B, ℓ, n) int32.
     """
     _check_blocks(full, table)
     if native.on_cuda(full, table):
@@ -117,7 +118,8 @@ def automorphism_blocks_plain(full: torch.Tensor, table: torch.Tensor) -> torch.
     with each block's slice of the table."""
     _check_blocks(full, table)
     lc, cs, B, ell, N = full.shape
-    idx = table.view(1, cs, 1, 1, N // cs).expand(lc, cs, B, ell, N // cs)
+    n = table.shape[0] // cs
+    idx = table.view(1, cs, 1, 1, n).expand(lc, cs, B, ell, n)
     return torch.gather(full, -1, idx)
 
 
@@ -127,7 +129,7 @@ def automorphism_blocks_cuda(full: torch.Tensor, table: torch.Tensor) -> torch.T
     _check_blocks(full, table)
     _require_words(full, table)
     lc, cs, B, ell, N = full.shape
-    n = N // cs
+    n = table.shape[0] // cs
     group = B * ell                         # rows of one block
     rows = config.effective_block(group, None)
     out = torch.empty((lc, cs, B, ell, n), dtype=torch.int32, device=full.device)
@@ -137,7 +139,7 @@ def automorphism_blocks_cuda(full: torch.Tensor, table: torch.Tensor) -> torch.T
             full.data_ptr(), table.data_ptr(), out.data_ptr(), lc * cs * group,
             N, n, rows, group, cs, native.stream_of(full))
     native.check("automorphism", err, "automorphism_blocks")
-    config.count_launch("automorphism", "automorphism_blocks")
+    config.count_launch("automorphism", "automorphism_blocks", device=full.device)
     return out
 
 
@@ -145,7 +147,10 @@ def _check_blocks(full: torch.Tensor, table: torch.Tensor) -> None:
     if full.dim() != 5 or full.shape[-1] % full.shape[1]:
         raise ValueError(f"automorphism_blocks takes (lc, cs, B, ℓ, N) with cs "
                          f"dividing N, got {tuple(full.shape)}")
-    _check_perm(full, table)
+    if (table.dim() != 1 or table.shape[0] % full.shape[1]
+            or full.shape[-1] % table.shape[0]):
+        raise ValueError(f"perm {tuple(table.shape)} for N = {full.shape[-1]} "
+                         f"and {full.shape[1]} blocks")
 
 
 def automorphism_eager(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -176,7 +181,7 @@ def automorphism_eager_cuda(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor
             x.data_ptr(), perm.data_ptr(), out.data_ptr(), P * ell, N,
             *cluster_plan(N), native.stream_of(x))
     native.check("automorphism", err, "automorphism_eager")
-    config.count_launch("automorphism", "automorphism_eager")
+    config.count_launch("automorphism", "automorphism_eager", device=x.device)
     return out
 
 
@@ -230,7 +235,7 @@ def automorphism_multi_cuda(x: torch.Tensor, perms: torch.Tensor) -> torch.Tenso
             x.data_ptr(), perms.data_ptr(), out.data_ptr(), G, R, L, N,
             *cluster_plan(N), native.stream_of(x))
     native.check("automorphism", err, "automorphism_multi")
-    config.count_launch("automorphism", "automorphism_multi")
+    config.count_launch("automorphism", "automorphism_multi", device=x.device)
     return out
 
 
@@ -293,7 +298,7 @@ def auto_ks_cuda(exts: torch.Tensor, evk_a: torch.Tensor, evk_b: torch.Tensor,
             q.data_ptr(), mu.data_ptr(), out.data_ptr(), J, G, R, L, N,
             native.stream_of(exts))
     native.check("automorphism", err, "auto_ks")
-    config.count_launch("auto_ks", "auto_ks")
+    config.count_launch("auto_ks", "auto_ks", device=exts.device)
     return out
 
 

@@ -204,7 +204,7 @@ def bconv_grouped_cuda(x: torch.Tensor, src: tuple[int, ...],
             c.barrett.data_ptr(), out.data_ptr(), G, Bg, ell, k, N, chunk, sg, sb,
             si, native.stream_of(x))
     native.check("bconv", err, "bconv")
-    config.count_launch("bconv", "bconvu")
+    config.count_launch("bconv", "bconvu", device=x.device)
     return out
 
 

@@ -6,7 +6,9 @@ CUDA kernel — never on the plain CPU path — under the reference's family nam
 ("eltwise", "bconv", "ntt", "auto_ks", "automorphism") and under its own
 kernel name, so a run can show which kernel its main path went through, not
 only which family: the single-permutation, eager and multi-permutation
-kernels all count under "automorphism".  Launches are mirrored into an active
+kernels all count under "automorphism".  Each wrapper also names the card it
+launched on, so a run on a mesh over several cards shows the launches per
+card (:func:`card_launch_counts`).  Launches are mirrored into an active
 :class:`repro_torch.core.trace.OpTrace`.
 
 Each wrapper also calls :func:`before_launch` just ahead of its launch, which
@@ -30,6 +32,7 @@ from repro_torch.core import trace as _hetrace
 
 _launches: collections.Counter = collections.Counter()
 _kernel_launches: collections.Counter = collections.Counter()
+_card_launches: collections.Counter = collections.Counter()   # (card, kernel)
 
 # Optional pre-launch hook, called as hook(family, n) by :func:`before_launch`
 # ahead of every kernel launch.  The fault injector (repro_torch.runtime.faults)
@@ -76,11 +79,14 @@ def before_launch(family: str, n: int = 1) -> None:
         _launch_hook(family, n)
 
 
-def count_launch(family: str, kernel: str, n: int = 1) -> None:
+def count_launch(family: str, kernel: str, n: int = 1, device=None) -> None:
     """Record ``n`` launches of ``kernel``, a member of ``family``, after
-    they were issued (a launch whose hook raised is never counted)."""
+    they were issued (a launch whose hook raised is never counted), on the
+    card ``device`` when given."""
     _launches[family] += n
     _kernel_launches[kernel] += n
+    if device is not None:
+        _card_launches[(str(device), kernel)] += n
     _hetrace.record_launch(family, n)
 
 
@@ -111,10 +117,20 @@ def kernel_launch_counts() -> dict:
     return dict(_kernel_launches)
 
 
+def card_launch_counts() -> dict:
+    """Snapshot of the launches per card and kernel since the last reset:
+    {card: {kernel: n}}."""
+    out: dict = {}
+    for (card, kernel), n in _card_launches.items():
+        out.setdefault(card, {})[kernel] = n
+    return out
+
+
 def reset_launches() -> None:
-    """Zero every per-family and per-kernel counter."""
+    """Zero every per-family, per-kernel and per-card counter."""
     _launches.clear()
     _kernel_launches.clear()
+    _card_launches.clear()
 
 
 # ----------------------------------------------------------------------------

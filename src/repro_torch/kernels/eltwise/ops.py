@@ -173,5 +173,5 @@ def eltwise_cuda(op: str, basis: tuple[int, ...], *arrays: torch.Tensor,
             consts[0].data_ptr(), consts[1].data_ptr(), w,
             out.numel() // (ell * N), ell, N, native.stream_of(out))
     native.check("eltwise", err, f"eltwise {op}")
-    config.count_launch("eltwise", "efu")
+    config.count_launch("eltwise", "efu", device=dev)
     return out

@@ -164,7 +164,7 @@ def ntt_cuda(x: torch.Tensor, fc: nttm.FourStepConsts, forward: bool,
                      int(stage_pairs(N, R, cluster)), native.stream_of(x))
     name = "ntt_fwd" if forward else "ntt_inv"
     native.check("ntt", err, name)
-    config.count_launch("ntt", name)
+    config.count_launch("ntt", name, device=x.device)
     return out
 
 
@@ -367,5 +367,5 @@ def ntt_phase_cuda(x: torch.Tensor, fc: nttm.FourStepConsts, phase: str,
                      *x.stride()[:4], lc, cs, B, ell, limb_block, fc.R, fc.C,
                      plan.tile, native.stream_of(x))
     native.check("ntt", err, name)
-    config.count_launch("ntt", name)
+    config.count_launch("ntt", name, device=x.device)
     return out

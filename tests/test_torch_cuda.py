@@ -938,3 +938,77 @@ def test_sharded_pipeline_same_bytes_on_card_and_cpu(dev, name, monkeypatch):
         ks, ct1, ct2 = S._make_inputs(p, device=device)
         out[str(device)] = S._pipeline_run(cm, p, ks, ct1, ct2, device)
     assert out["cpu"] == out[str(dev)]
+
+
+def _card_parts(where):
+    """The devices of a mesh split into parts: four parts of cuda:0, or the
+    machine's distinct cards (four, or two with two or three)."""
+    count = torch.cuda.device_count()
+    if where == "parts_of_one_card":
+        return ["cuda:0"] * 4
+    if count < 2:
+        pytest.skip("needs two CUDA cards")
+    return [f"cuda:{k}" for k in range(4 if count >= 4 else 2)]
+
+
+@pytest.mark.parametrize("where", ["parts_of_one_card", "distinct_cards"])
+def test_mesh_parts_on_card(dev, where, monkeypatch):
+    """The distributed engine with its coefficient axis split into parts on
+    the card(s), at N = 256 on every map of 4 and 16 shards whose block size
+    the parts divide: each primitive's bytes, collectives and bytes between
+    blocks equal the one-part engine's on cuda:0 (the bytes between parts
+    their closed form); hmult → rescale → hrot_hoisted([1, 2]) gives the JAX
+    package's single-device eager digests with the one-part tallies and the
+    CPU parts' bytes between parts, every path kernel launched on every card
+    of the mesh, no plain ring op on card data; an operand on other parts
+    and a coefficient-mixing op outside the scope raise."""
+    from repro_torch.core import _dist_selftest as S, distributed as D
+    from repro_torch.core.parts import Parts, PartsError
+    guard_plain_ring_ops(monkeypatch)
+    devices = _card_parts(where)
+    n_parts = len(devices)
+    with open(os.path.join(os.path.dirname(__file__), "torch_dist_ref.json")) as f:
+        want = json.load(f)["N"]["256"]["engines"]["eager"]
+    p = prm.make_params(N=256, L=8, K=2, dnum=4)
+    inputs = {d: S._make_inputs(p, device=d) for d in ("cpu", "cuda:0")}
+    for cm in S.maps_for_parts(4, n_parts) + S.maps_for_parts(16, n_parts):
+        prims = {}
+        for devs in (None, devices):
+            with D.dist_scope(cm, device="cuda:0", devices=devs) as ctx:
+                prims[bool(devs)] = S._prim_checks(ctx, p, np.random.default_rng(11),
+                                                   "cuda:0")
+        for op, res in prims[True].items():
+            one = prims[False][op]
+            assert (res["digest"], res["executed"], res["bytes"]) == \
+                (one["digest"], one["executed"], one["bytes"]), (cm.name, op)
+        config.reset_launches()
+        out = S._pipeline_run(cm, p, *inputs["cuda:0"], "cuda:0", devices)
+        per_card = config.card_launch_counts()
+        one = S._pipeline_run(cm, p, *inputs["cuda:0"], "cuda:0")
+        on_cpu = S._pipeline_run(cm, p, *inputs["cpu"], "cpu", ["cpu"] * n_parts)
+        assert out["digests"] == want, cm.name
+        assert out["executed"] == out["collectives"] == one["executed"], cm.name
+        assert out["bytes"] == one["bytes"] and out["part_bytes"] == on_cpu["part_bytes"]
+        assert sorted(per_card) == sorted(set(devices)), per_card
+        for card, counts in per_card.items():
+            for kernel in ("efu", "bconvu", "ntt_fwd_col", "ntt_fwd_row",
+                           "ntt_inv_row", "ntt_inv_col", "automorphism_blocks"):
+                assert counts.get(kernel, 0) > 0, (cm.name, card, kernel)
+    ct = inputs["cuda:0"][1]
+    with D.dist_scope("4x4-BK-2x2", devices=devices) as ctx:
+        a = D.shard_poly(ct.a, ctx)
+        assert isinstance(a.data, Parts) and a.devices == tuple(map(torch.device, devices))
+        with pytest.raises(PartsError):
+            a + ct.a                                       # a tensor on one card
+        if len(set(devices)) > 1:                          # parts on other cards
+            swapped = pl.RnsPoly(Parts(a.data.parts[::-1]), a.basis, a.domain)
+            with pytest.raises(ValueError):
+                D.sharded_ntt(ctx, swapped.data, a.basis, False)
+            with pytest.raises(PartsError):
+                a + swapped
+        else:                                              # another part count
+            half = pl.RnsPoly(Parts(a.data.parts[:2]), a.basis, a.domain)
+            with pytest.raises(PartsError):
+                D.sharded_ntt(ctx, half.data, a.basis, False)
+    with pytest.raises(PartsError):
+        a.to_coeff()                                       # outside the scope
