@@ -185,10 +185,31 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               within one point of the replay's and ≥ 0.8; seconds of keygen,
               encoding and each iteration, launches per kernel and family,
               ``cost_crosscheck`` of its op trace, peak device memory;
-16. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
+16. lm      — the LM decoder (``repro_torch.models``, the dense family) at
+              qwen3-4b's widths: (a) two layers in float32, TF32 off, on the
+              card and on this machine's CPU from the same weights
+              (``tests/torch_lm_check.py``): forward logits and a 16-token
+              teacher-forced decode within 1e-3, two train steps' loss and
+              grad norm within 1e-4 relative, the parameters within 2·Σlr;
+              (b) all 36 layers in bf16 through ``ServeEngine``: 8 slots,
+              max_seq 256, 16 requests of 16-token prompts and 32 new tokens
+              each, every one done with tokens in the vocabulary and finite
+              logits; engine steps, wave seconds and tokens/s, ms per decode
+              step over the 8 slots (median of 20 after 3 warm, host clock
+              ending in a sync) beside its bytes bound, peak memory, and the
+              share of a teacher-forced decode's argmaxes equal to
+              ``forward``'s over 64 positions; (c) two layers in bf16 with
+              remat trained by ``examples/torch/lm_train_demo.py``'s driver
+              (batch 8 × 64 tokens, 10 steps, lr 1.5e-3): every loss finite and
+              the last below the first; 3× the state's bytes free in the
+              temporary directory; the final checkpoint restored by a fresh
+              driver's resume byte for byte, which then runs step 10; ms per
+              step, checkpoint GB, save and restore seconds, peak memory; no
+              FHE kernel launched from (b) to (c);
+17. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               (R × cluster size) and the single permutation at N = 2¹⁶,
               ℓ = 48, its cache in a temporary directory;
-17. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
+18. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
               (every kernel against its plain version at small shapes and at
               the bootstrap's N = 2¹⁴ shapes, the NTT at every cluster size of
               every split it is tested at; the tests that need two cards run
@@ -197,7 +218,8 @@ with ``nvcc`` and runs, each phase printing one JSON line:
 then the kernel table as one JSON line (launches: the pipeline's pass, one
 warm bootstrap, one warm served wave, the analytics phase's traced ops and
 wave, one distributed pass per map, one pass per map on four parts of the
-card and HELR's two iterations at the paper's ring, and each path's share),
+card, HELR's two iterations at the paper's ring and the LM phase's (none),
+and each path's share),
 and the
 result line
 ``{"ok": true, "device": {...}}`` last.  Any failure raises: the script exits
@@ -2205,6 +2227,271 @@ def phase_examples():
     return launches
 
 
+# The LM decoder (repro_torch.models) at qwen3-4b's widths: (a) two layers in
+# float32 on the card against the CPU, (b) all 36 layers in bf16 served by
+# ServeEngine, (c) two layers in bf16 trained under StepDriver with a
+# checkpoint restored into a fresh driver
+LM_ARCH = "qwen3_4b"
+LM_CHECK_LAYERS = 2
+LM_SERVE = {"slots": 8, "max_seq": 256, "requests": 16, "prompt": 16, "new": 32}
+# (c) saves asynchronously after step 5 and at the end (step 9); the fresh
+# driver resumes at step 10, runs it and saves it: three step directories at
+# most, one of them being written.  On uniform random tokens the loss falls
+# only as the head's logits shrink toward uniform: at the demo's reduced-
+# width lr (3e-3) the full-width loss barely fell in 10 steps on the H100,
+# and at 1e-2 it climbed (PERF.md §6), so the full-width run takes
+# 1.5e-3
+LM_TRAIN = {"layers": 2, "batch": 8, "seq": 64, "steps": 10, "every": 6, "keep": 2,
+            "lr": 1.5e-3}
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+
+
+def _dispatched_ops(fn) -> int:
+    """The number of aten ops one call of ``fn`` dispatches (a kernel each,
+    but for views)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        fn()
+    return Count.n
+
+
+def _tensor_leaves(tree) -> list:
+    from repro_torch.checkpoint.manager import _flatten
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def _lm_cross(full):
+    """(a) qwen3-4b's widths with two layers in float32, TF32 off, on the card
+    and on the CPU from the same weights (``tests/torch_lm_check.py``)."""
+    import dataclasses
+    import torch_lm_check as LC
+    cfg = dataclasses.replace(full, n_layers=LM_CHECK_LAYERS, dtype="float32")
+    t0 = time.perf_counter()
+    got = LC.card_vs_cpu(cfg, DEVICE, seed=SEED, batch=2, seq=16, decode_steps=16,
+                         train_steps=2)
+    got["seconds"] = time.perf_counter() - t0
+    got["config"] = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                     "dtype": cfg.dtype, "remat": cfg.remat,
+                     "tolerance": {"logits_abs": LC.LOGIT_ATOL,
+                                   "metric_rel": LC.METRIC_RTOL}}
+    return got
+
+
+def _lm_serve(full):
+    """(b) qwen3-4b, 36 layers in bf16, through ServeEngine; the decode
+    step's time and the teacher-forced decode against ``forward``."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import Request
+    cfg = full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(DEVICE).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    s = LM_SERVE
+    eng = ServeEngine(cfg, params, batch_slots=s["slots"], max_seq=s["max_seq"], eos_id=-1)
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=s["prompt"]),
+                    max_new_tokens=s["new"]) for i in range(s["requests"])]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    steps = 0
+    while any(not r.done for r in reqs) and steps < 10_000:
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    tokens = sum(len(r.generated) for r in reqs)
+    served_ok = all(r.done and len(r.generated) == s["new"]
+                    and all(0 <= t < cfg.padded_vocab for t in r.generated)
+                    for r in reqs)
+    del eng
+
+    # one decode step over every slot: 3 warm, then the median of 20
+    with torch.no_grad():
+        cache = T.init_cache(cfg, s["slots"], s["max_seq"], device=DEVICE)
+        cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+        tok = torch.from_numpy(rng.integers(1, cfg.vocab, (s["slots"], 1))).to(DEVICE)
+        times, finite = [], True
+        for i in range(23):
+            t0 = time.perf_counter()
+            logits, cache = T.decode_step(params, cfg, tok, cache, i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            finite &= bool(torch.isfinite(logits).all())
+        step_ms = 1e3 * statistics.median(times[3:])
+        # the same step's device time (CUDA-graph replays) and its op count
+        step = lambda: T.decode_step(params, cfg, tok, cache, 23)
+        device_ms = gpu_ms(step, reps=3, rounds=3)
+        ops = _dispatched_ops(step)
+        del cache
+        # teacher-forced decode of one sequence against forward's argmaxes
+        seq = torch.from_numpy(rng.integers(1, cfg.vocab, (1, 64))).to(DEVICE)
+        fwd = T.forward(params, cfg, seq)[0][0]
+        finite &= bool(torch.isfinite(fwd).all())
+        cache = T.init_cache(cfg, 1, 64, device=DEVICE)
+        dec = []
+        for t in range(64):
+            lg, cache = T.decode_step(params, cfg, seq[:, t:t + 1], cache, t)
+            dec.append(lg[0, 0])
+        dec = torch.stack(dec)
+        finite &= bool(torch.isfinite(dec).all())
+        agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+        del cache
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "dtype": cfg.dtype, **s,
+            "weights_gb": weight_bytes / 1e9, "init_s": init_s,
+            "engine_steps": steps, "serve_s": serve_s, "tokens": tokens,
+            "tokens_per_s": tokens / serve_s, "decode_step_ms": step_ms,
+            "decode_step_ms_all": [1e3 * t for t in times],
+            "decode_step_device_ms": device_ms,
+            "decode_idle_share": 1 - device_ms / step_ms,
+            "decode_step_aten_ops": ops,
+            "decode_tokens_per_s": s["slots"] / step_ms * 1e3,
+            "decode_bound_ms": (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+            "argmax_agree_share": agree, "logits_finite": finite,
+            "served_ok": served_ok, "peak_memory_gb": peak}
+
+
+def _lm_train(full, tmp):
+    """(c) qwen3-4b's widths with two layers in bf16, remat on, trained by
+    ``examples/torch/lm_train_demo.py``'s driver; the last checkpoint
+    restored by a fresh driver's resume, byte for byte."""
+    import dataclasses
+    import shutil
+    import torch
+    import torch_examples as TE
+    from repro_torch.models import transformer as T
+    demo = TE.load("lm")
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN["layers"])
+    s = LM_TRAIN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    drv = demo.build_driver(cfg, DEVICE, checkpoint_dir=tmp, steps=s["steps"],
+                            batch=s["batch"], seq=s["seq"], base_lr=s["lr"],
+                            checkpoint_every=s["every"], keep=s["keep"], seed=SEED,
+                            meter_hook=lambda st, m, dt: steps.append((st, dt, m)))
+    state_bytes = sum(t.numel() * t.element_size() for t in _tensor_leaves(drv.state))
+    free = shutil.disk_usage(tmp).free
+    if free < 3 * state_bytes:
+        raise AssertionError(f"lm: {free / 1e9:.1f} GB free in {tmp}, the run needs "
+                             f"3 × {state_bytes / 1e9:.1f} GB for its checkpoints")
+    saves = []
+    save = drv.ckpt.save
+
+    def timed_save(step, tree, blocking=True):
+        t0 = time.perf_counter()
+        save(step, tree, blocking=blocking)
+        saves.append({"step": step, "blocking": blocking,
+                      "seconds": time.perf_counter() - t0})
+    drv.ckpt.save = timed_save
+    t0 = time.perf_counter()
+    end = drv.run()
+    run_s = time.perf_counter() - t0
+    losses = [m["loss"] for _, _, m in steps]
+    ckpt_dir = Path(tmp) / f"step_{end - 1:09d}"
+    ckpt_gb = sum(f.stat().st_size for f in ckpt_dir.iterdir()) / 1e9
+
+    # a fresh driver (other weights) resumes from the last checkpoint; the
+    # restore is held byte for byte against the first driver's state
+    want = _tensor_leaves(drv.state)
+    restores, resumed = [], []
+    drv2 = demo.build_driver(cfg, DEVICE, checkpoint_dir=tmp, steps=s["steps"] + 1,
+                             batch=s["batch"], seq=s["seq"], base_lr=s["lr"],
+                             checkpoint_every=s["every"], keep=s["keep"],
+                             seed=SEED + 1,
+                             meter_hook=lambda st, m, dt: resumed.append(st))
+    restore = drv2.ckpt.restore
+
+    def checked_restore(template, **kw):
+        t0 = time.perf_counter()
+        state, step = restore(template, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = _tensor_leaves(state)
+        equal = len(got) == len(want) and all(
+            a.dtype == b.dtype
+            and torch.equal(a.detach().reshape(-1).view(torch.uint8),
+                            b.detach().reshape(-1).view(torch.uint8))
+            for a, b in zip(got, want))
+        restores.append({"step": step, "seconds": seconds, "leaves": len(got),
+                         "bytes_equal": equal})
+        return state, step
+    drv2.ckpt.restore = checked_restore
+    del drv
+    end2 = drv2.run()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = [1e3 * dt for _, dt, _ in steps]
+    train_tokens = s["batch"] * s["seq"]
+    n_params = sum(p.numel() for p in drv2.state[0].parameters())
+    del drv2
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "dtype": cfg.dtype, "remat": cfg.remat, **s,
+            "params": n_params, "state_gb": state_bytes / 1e9, "free_gb": free / 1e9,
+            "losses": losses, "step_ms": ms, "step_ms_median": statistics.median(ms[1:]),
+            "step_bound_ms": 6 * n_params * train_tokens / BF16_FLOPS_PER_S * 1e3,
+            "run_s": run_s, "end": end, "saves": saves, "checkpoint_gb": ckpt_gb,
+            "restores": restores, "resumed_steps": resumed, "end_after_resume": end2,
+            "peak_memory_gb": peak}
+
+
+def phase_lm():
+    """The LM decoder of ``repro_torch.models`` (ROADMAP A.13, the dense
+    family) at qwen3-4b's widths: (a) card against CPU, (b) serving at full
+    depth, (c) training at two layers with checkpoint and resume.  The
+    launch counts are reset just before (b) and read just after (c): the LM
+    launches none of the FHE kernels.  Returns those per-kernel counts."""
+    from repro_torch.kernels import config
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    full = registry.get_config(LM_ARCH)
+    cross = _lm_cross(full)
+    config.reset_launches()
+    serve = _lm_serve(full)
+    with tempfile.TemporaryDirectory() as tmp:
+        train = _lm_train(full, tmp)
+    launches = config.kernel_launch_counts()
+    emit({"phase": "lm", "arch": LM_ARCH, "cross": cross, "serve": serve,
+          "train": train, "fhe_kernel_launches": launches,
+          "seconds": time.perf_counter() - t0})
+    if not all(cross["ok"].values()):
+        raise AssertionError(f"lm: card and CPU differ: {cross['ok']}")
+    if not (serve["served_ok"] and serve["logits_finite"]):
+        raise AssertionError("lm: serving did not finish every request with "
+                             f"{LM_SERVE['new']} tokens in the vocabulary, or a "
+                             "logit was not finite")
+    losses = train["losses"]
+    if not (len(losses) == LM_TRAIN["steps"]
+            and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"lm: the training loss did not fall: {losses}")
+    r = train["restores"]
+    if not (len(r) == 1 and r[0]["step"] == LM_TRAIN["steps"] - 1
+            and r[0]["bytes_equal"]
+            and train["resumed_steps"] == [LM_TRAIN["steps"]]
+            and train["end_after_resume"] == LM_TRAIN["steps"] + 1):
+        raise AssertionError(f"lm: the checkpoint did not restore and resume: "
+                             f"{r}, {train['resumed_steps']}")
+    if launches:
+        raise AssertionError(f"lm: FHE kernels launched: {launches}")
+    return launches
+
+
 def phase_autotune(params, cache_file):
     """A quick sweep of the NTT's and the single permutation's knobs through
     the autotuner's command-line entry point."""
@@ -2342,6 +2629,7 @@ def main() -> int:
         cards_launches = phase_cards(paper, pipeline, dist_digests)
         del pipeline
         helr_launches = phase_examples()
+        lm_launches = phase_lm()
         phase_autotune(paper, cache_file)
         autotune.set_cache_path(None)
     phase_card_tests()
@@ -2350,7 +2638,7 @@ def main() -> int:
                                 "analytics": analytics_launches,
                                 "distributed": dist_launches,
                                 "cards": cards_launches,
-                                "helr": helr_launches})
+                                "helr": helr_launches, "lm": lm_launches})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

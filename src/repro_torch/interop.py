@@ -11,7 +11,9 @@ u32 residues, so both sides compute on the same bytes:
   ciphertext from and to ``(a, b, scale, basis, domain)``;
 * :func:`bootcontext_from_numpy` builds a bootstrapping context from its key
   set and its EvalMod and BSGS settings, the transform diagonals rebuilt from
-  this package's own canonical embedding.
+  this package's own canonical embedding;
+* :func:`lm_params_from_numpy` builds the LM decoder from the reference's
+  parameter tree.
 """
 from __future__ import annotations
 
@@ -79,3 +81,42 @@ def bootcontext_from_numpy(params: CkksParams, s_small: np.ndarray,
         K_range=int(K_range), cheb_coeffs=np.asarray(cheb_coeffs, dtype=np.float64),
         bs=int(bs), cts_diags=cts_diags, stc_diags=stc_diags,
         use_min_ks=bool(use_min_ks))
+
+
+def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
+    """A :class:`~repro_torch.models.transformer.Transformer` holding the
+    reference's LM parameter tree given as numpy arrays: nested dicts with
+    the layers stacked on a leading axis (``tree["layers"]["attn"]["wq"][i]``
+    is layer i's ``layers.i.attn.wq``).  Every leaf of the tree must be
+    used, each in the port's dtype for ``cfg``."""
+    import torch
+
+    from .models import transformer as T
+    model = T.Transformer(cfg, device)
+
+    def leaves(node, path=()):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield path, node
+
+    given = dict(leaves(tree))
+    used = set()
+    with torch.no_grad():
+        for name, w in model.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "layers":
+                path, index = ("layers", *parts[2:]), (int(parts[1]),)
+            else:
+                path, index = tuple(parts), ()
+            if path not in given:
+                raise KeyError(f"{name}: no {'/'.join(path)} in the tree")
+            a = np.array(np.asarray(given[path])[index], dtype=np.float32)
+            if tuple(a.shape) != tuple(w.shape):
+                raise ValueError(f"{name}: shape {a.shape}, expected {tuple(w.shape)}")
+            w.copy_(torch.from_numpy(a))
+            used.add(path)
+    if set(given) != used:
+        raise KeyError(f"leaves not used: {sorted(set(given) - used)}")
+    return model

@@ -1,4 +1,5 @@
-"""Serving launcher: the multi-tenant FHE serving engine on the card.
+"""Serving launcher: the multi-tenant FHE serving engine (default) or the
+LM decode engine, on the card.
 
     # FHE serving: T tenants × R requests through the batched engine
     PYTHONPATH=src python -m repro_torch.launch.serve --tenants 2 --requests 16
@@ -6,14 +7,15 @@
     # the same on the CPU (the kernels' plain versions)
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
+    # LM decode: a reduced architecture through ServeEngine
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch qwen3_4b
+
 The flags and defaults are the reference launcher's (``repro.launch.serve``)
-plus ``--device``.  Its ``--mode lm`` (the LM decode engine, with its
-flags) is not ported yet and exits with a message.
+plus ``--device``.
 """
 from __future__ import annotations
 
 import argparse
-import sys
 import time
 
 import numpy as np
@@ -104,13 +106,47 @@ def main_fhe(args):
     assert err < 1e-2
 
 
+def main_lm(args):
+    import torch
+
+    from repro_torch.launch import require_device
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import Request
+
+    require_device(args.device)
+    cfg = registry.get_config(args.arch).reduced()
+    mod = registry.get_module(cfg)
+    params = mod.init_params(torch.Generator(args.device).manual_seed(0), cfg)
+    eng = ServeEngine(cfg, params, batch_slots=args.slots,
+                      max_seq=args.max_seq, eos_id=-1)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=4),
+                    max_new_tokens=args.max_new)
+            for i in range(args.requests)]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.time()
+    steps = 0
+    while any(not r.done for r in reqs) and steps < 10_000:
+        eng.step()          # reads its tokens back: waits for the device
+        steps += 1
+    dt = time.time() - t0
+    total_tokens = sum(len(r.generated) for r in reqs)
+    print(f"served {len(reqs)} requests, {total_tokens} tokens in "
+          f"{dt:.1f}s ({total_tokens/dt:.1f} tok/s, {steps} engine steps, "
+          f"device={args.device})")
+    for r in reqs[:3]:
+        print(f"  req {r.rid}: prompt {list(r.prompt)} → {r.generated}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="fhe", choices=["fhe", "lm"])
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--device", default="cuda",
-                    help="where keys and ciphertexts live (cuda runs the "
-                         "kernels, cpu their plain versions)")
+                    help="where keys and ciphertexts (lm: the model) live "
+                         "(cuda runs the kernels, cpu their plain versions)")
     ap.add_argument("--tenants", type=int, default=2)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--no-batching", action="store_true",
@@ -125,11 +161,16 @@ def main(argv=None):
     ap.add_argument("--metrics-every", type=int, default=0, metavar="N",
                     help="with --metrics-json: also rewrite the snapshot "
                          "every N engine steps (0 = final only)")
+    # lm mode
+    ap.add_argument("--arch", default="qwen3_4b")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--max-seq", type=int, default=64)
     args = ap.parse_args(argv)
-    if args.mode == "lm":
-        sys.exit("repro_torch.launch.serve: --mode lm (the LM decode engine) "
-                 "is not ported yet")
-    main_fhe(args)
+    if args.mode == "fhe":
+        main_fhe(args)
+    else:
+        main_lm(args)
 
 
 if __name__ == "__main__":

@@ -16,9 +16,10 @@ publishes atomic snapshots and :func:`recover` rebuilds a bit-identical
 engine from snapshot + journal tail.  :class:`DispatchWatchdog` bounds every
 dispatch against hung launches.
 
-The reference's token-decode ``ServeEngine`` of the LM substrate is not
-ported yet.
+The token-decode :class:`~repro_torch.serve.engine.ServeEngine` of the LM
+substrate keeps the reference's import path.
 """
+from .engine import ServeEngine
 from .fhe import FheServeEngine
 from .ir import (BATCHED_KINDS, KEYED_KINDS, OP_KINDS, FheRequest, HeOp,
                  LogicalClock, RequestFailed, RequestRejected,
@@ -40,7 +41,7 @@ __all__ = [
     "Journal", "JournalCorrupt", "JournalError", "KEYED_KINDS",
     "LogicalClock", "OP_KINDS", "OverloadController", "Plan", "PlanCache",
     "QueueFull", "RecoveryError", "RequestFailed", "RequestRejected",
-    "RequestTimeout", "RetryPolicy", "SHEDDING", "ServeMetrics",
+    "RequestTimeout", "RetryPolicy", "SHEDDING", "ServeEngine", "ServeMetrics",
     "SnapshotStore", "TenantDegraded", "TenantKeyStore", "UnknownTenant",
     "admission_check", "recover", "rid_counter_state", "set_rid_counter",
     "standard_program", "standard_reference", "standard_request",

@@ -31,7 +31,7 @@ def _imports(path: Path) -> set[str]:
 def test_examples_import_no_jax():
     paths = [*sorted((ROOT / "examples" / "torch").glob("*.py")),
              ROOT / "tests" / "torch_examples.py", ROOT / "chip_smoke.py"]
-    assert len(paths) == 7
+    assert len(paths) == 8
     bad = {p.name: sorted(_imports(p) & {"jax", "jaxlib", "repro"}) for p in paths}
     assert not any(bad.values()), bad
 

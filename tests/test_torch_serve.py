@@ -301,8 +301,9 @@ def test_launcher_serves_on_the_cpu(capsys):
     from repro_torch.launch import serve as launcher
     launcher.main(["--device", "cpu", "--requests", "4", "--N", "512", "--L", "4"])
     assert "decrypt check" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not ported"):
-        launcher.main(["--mode", "lm"])
+    launcher.main(["--mode", "lm", "--device", "cpu", "--requests", "2",
+                   "--slots", "2", "--max-new", "3"])
+    assert "served 2 requests, 6 tokens" in capsys.readouterr().out
 
 
 def test_launch_hook_runs_before_the_counter_moves():

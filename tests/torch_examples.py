@@ -41,7 +41,7 @@ REF = ROOT / "tests" / "torch_examples_ref.json"
 EXAMPLES = ROOT / "examples" / "torch"
 MODULES = {"quickstart": "quickstart", "helr": "helr_training",
            "bootstrapping": "bootstrapping_demo", "serving": "serving_demo",
-           "distributed": "distributed_mapping_demo"}
+           "distributed": "distributed_mapping_demo", "lm": "lm_train_demo"}
 #: example → the engines it is held on
 ENGINES = {"quickstart": ("fused", "eager"), "helr": ("fused", "eager"),
            "bootstrapping": ("fused",), "serving": ("fused",),
