@@ -153,24 +153,32 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               the AutoU block gather and BConvU at the 4x4-BK-2x2 shard
               shapes (limb duplication's grouped launch over the whole mesh,
               one cluster's share, ARK) against their plain versions, timed;
-14. cards   — the distributed engine's mesh with its coefficient axis split
-              into four parts (``Mesh(…, devices)``): (a) at N = 256 on every
-              map of 1–16 shards whose block size 4 divides, on four parts of
-              the card and four parts of the CPU: each primitive's bytes equal
-              on both, its bytes between parts their closed form, the
-              pipeline's digests the JAX package's, both collective tallies
-              the prediction's and the one-part mesh's; (b) ``paper_full``
-              under 4x4-BK-2x2 and 4x4-coef-scatter on four parts of cuda:0:
-              hmult → rescale → hrot_hoisted([1, 4]) on the pipeline phase's
-              keys and ciphertexts with the bytes of the one-part sharded
-              engine and of the single-device eager engine, decode error
-              < 1e-2, executed collectives equal to the prediction, every path
-              kernel launched on the mesh's card; warm ms per op, launches per
-              op, card and kernel, bytes between blocks and between parts;
+14. cards   — the distributed engine's mesh split into four parts
+              (``Mesh(…, devices)``) on the grids 1 × 4 (the coefficient axis
+              alone), 2 × 2 and 4 × 1 (rows along "limb", columns along
+              "coef"): (a) at N = 256 on every map of 1–16 shards each grid
+              splits, on four parts of the card and four parts of the CPU:
+              each primitive's bytes equal on both, its bytes between parts
+              their closed form per axis, the pipeline's and the batched
+              families' digests the JAX package's, both collective tallies
+              the prediction's and the one-part mesh's, the bytes between
+              parts per axis their closed forms; (b) ``paper_full`` under
+              4x4-BK-2x2 and 4x4-coef-scatter on 1 × 4 parts of cuda:0, and
+              4x4-BK-2x2 on its 2 × 2 and 4 × 1 grids: hmult → rescale →
+              hrot_hoisted([1, 4]) on the pipeline phase's keys and
+              ciphertexts with the bytes of the one-part sharded engine and
+              of the single-device eager engine, decode error < 1e-2, and the
+              batched families at B = 4 (hmult_many → rescale_many →
+              hrot_many([1, 4, 4, 1]) → hadd_many → pmult_many) with the
+              single-device eager engine's bytes; executed collectives equal
+              to the prediction, bytes between parts per axis equal to their
+              closed form (cold and warm), every path kernel launched on the
+              mesh's card; warm ms per op, launches per op, card and kernel;
               (c) where the machine has two or more cards, (b) on distinct
-              cards (four, or two) and each "coef" collective timed alone
-              between them (CUDA events on every card, GB/s); on one card it
-              says that (c) did not run;
+              cards (four: the three grids; two or three: 1 × 2 and 2 × 1),
+              a "coef" all-to-all and all-gather and a "limb" all-gather
+              timed alone between them (CUDA events on every card, GB/s); on
+              one card it says that (c) did not run;
 15. examples — the FHE examples of ``examples/torch`` on the card: each at
               its own parameters with the ciphertext digests, decoded values
               and HE-op counts the JAX package recorded in
@@ -1861,10 +1869,17 @@ def phase_distributed(params, pipeline):
     return dict(total), rows, digests
 
 
-# parts of the distributed engine's mesh in phase ``cards``: the coefficient
-# axis split over four parts (of one card, and of four cards where the
-# machine has them)
+# parts of the distributed engine's mesh in phase ``cards``: four parts
+# (of one card, and of four cards where the machine has them), as grids of
+# (rows along "limb", columns along "coef"); one row is the coefficient
+# axis alone
 CARDS_PARTS = 4
+CARDS_GRIDS = ((1, 4), (2, 2), (4, 1))
+# the map the grids of several rows run at paper_full (their rows divide
+# its 4 limb clusters; coefficient scattering has one)
+GRID_MAP = "4x4-BK-2x2"
+# the batched families' rotations at paper_full (the pipeline keys' amounts)
+CARDS_BATCH_ROTS = (1, 4, 4, 1)
 
 
 def _sync_cards(devices):
@@ -1878,14 +1893,28 @@ def _sync_cards(devices):
     return sync
 
 
+def _flat(devices):
+    return [d for r in devices for d in (r if isinstance(r, list) else [r])]
+
+
+def _op_record(mesh, snap, ms, launches):
+    from repro_torch.core import _dist_selftest as S
+    from repro_torch.kernels import config
+    executed, nbytes = mesh.since(snap)
+    return {"ms": ms, "launches": launches,
+            "launches_per_card": config.card_launch_counts(),
+            "collectives": executed, "bytes": nbytes,
+            "regroups": mesh.regroups_since(snap),
+            "bytes_between_parts": S.axis_bytes(mesh, snap)}
+
+
 def _cards_ops(ct1, ct2, keys, params, sync, mesh):
     """hmult → rescale → hrot_hoisted([1, 4]) once under a multi-part
     scope: per op its result, host ms ending in a sync of every card, the
     launches per kernel and per card and kernel (counts reset just before
     the op, read just after), the collectives it executed, their bytes
-    between blocks and between parts."""
+    between blocks and, per axis, between parts."""
     from repro_torch.core import ckks
-    from repro_torch.kernels import config
     out, rec = {}, {}
     steps = (("hmult", lambda: ckks.hmult(ct1, ct2, keys)),
              ("rescale", lambda: ckks.rescale(out["hmult"], params)),
@@ -1894,22 +1923,49 @@ def _cards_ops(ct1, ct2, keys, params, sync, mesh):
     for name, fn in steps:
         snap = mesh.snapshot()
         out[name], ms, launches = _timed_op(fn, sync)
-        executed, nbytes = mesh.since(snap)
-        rec[name] = {"ms": ms, "launches": launches,
-                     "launches_per_card": config.card_launch_counts(),
-                     "collectives": executed, "bytes": nbytes,
-                     "bytes_between_parts": mesh.parts_since(snap)}
+        rec[name] = _op_record(mesh, snap, ms, launches)
     return out, rec
 
 
+class _TimedCkks:
+    """The ``ckks`` module with each call recorded as :func:`_cards_ops`
+    records an op (for ``_dist_selftest.batched_chain``)."""
+
+    def __init__(self, sync, mesh):
+        self.sync, self.mesh, self.rec = sync, mesh, {}
+
+    def __getattr__(self, name):
+        from repro_torch.core import ckks
+        fn = getattr(ckks, name)
+
+        def run(*args, **kwargs):
+            snap = self.mesh.snapshot()
+            out, ms, launches = _timed_op(lambda: fn(*args, **kwargs), self.sync)
+            self.rec[name] = _op_record(self.mesh, snap, ms, launches)
+            return out
+        return run
+
+
+def _sum_axis_bytes(recs) -> dict:
+    total: dict = {}
+    for r in recs:
+        for ax, kinds in r["bytes_between_parts"].items():
+            for k, v in kinds.items():
+                total.setdefault(ax, {}).setdefault(k, 0)
+                total[ax][k] += v
+    return total
+
+
 def _collective_times(mesh, params, gen, reps=5):
-    """Each "coef" collective of a BK-2x2 pass alone on the mesh's parts at
-    the paper's widths: the NTT's all-to-all of a (2, 48, N) operand's
-    column-phase blocks and the AutoU's all-gather of a (2, 46, N)
-    replicated operand's blocks.  Per collective: ms between CUDA events
-    recorded on every card's current stream before and after it (the
-    largest card's, median of ``reps``), the host ms ending in a sync of
-    every card, the bytes between parts and their GB/s."""
+    """Each collective of a BK-2x2 pass alone between the mesh's parts at
+    the paper's widths: along "coef" (a mesh of one row) the NTT's
+    all-to-all of a (2, 48, N) operand's column-phase blocks and the AutoU's
+    all-gather of a (2, 46, N) replicated operand's blocks; along "limb" (a
+    mesh of one column) limb duplication's all-gather of ModDown's (2, 12,
+    N) P part.  Per collective: ms between CUDA events recorded on every
+    card's current stream before and after it (the largest card's, median of
+    ``reps``), the host ms ending in a sync of every card, the bytes between
+    parts and their GB/s."""
     import torch
     from repro_torch.core import distributed as D
     from repro_torch.core.mapping import ClusterMap
@@ -1917,16 +1973,22 @@ def _collective_times(mesh, params, gen, reps=5):
     sync = _sync_cards(mesh.devices)
     R = D.DistContext(ClusterMap.parse("4x4-BK-2x2"), None).submodules(N)
     C, cs = N // R, mesh.cs
-    x48 = mesh.split(residues(params.q[:48], (2,), N, gen))
-    x46 = mesh.split(residues(params.q[:46], (2,), N, gen))
-    cases = {
-        "all_to_all": lambda: mesh.all_to_all(
+    cases = {}
+    if mesh.cols > 1:
+        x48 = mesh.split(residues(params.q[:48], (2,), N, gen))
+        x46 = mesh.split(residues(params.q[:46], (2,), N, gen))
+        cases["coef all_to_all"] = ("all_to_all", "coef", lambda: mesh.all_to_all(
             mesh.each(lambda b: b.unflatten(-1, (R, C // cs)),
-                      mesh.place(x48, True)), "coef", -2, -1),
-        "all_gather": lambda: mesh.all_gather(mesh.place(x46, False), "coef", -1)}
+                      mesh.place(x48, True)), "coef", -2, -1))
+        cases["coef all_gather"] = ("all_gather", "coef", lambda: mesh.all_gather(
+            mesh.place(x46, False), "coef", -1))
+    if mesh.rows > 1:
+        x12 = mesh.split(residues(params.p, (2,), N, gen))
+        cases["limb all_gather"] = ("all_gather", "limb", lambda: mesh.all_gather(
+            mesh.place(x12, True), "limb", -2))
     cards = sorted({d.index or 0 for d in mesh.devices})
     out = {}
-    for kind, fn in cases.items():
+    for name, (kind, axis, fn) in cases.items():
         fn()
         sync()
         dev_ms, host_ms = [], []
@@ -1943,37 +2005,63 @@ def _collective_times(mesh, params, gen, reps=5):
             sync()
             host_ms.append((time.perf_counter() - t0) * 1e3)
             dev_ms.append(max(s.elapsed_time(e) for s, e in ev.values()))
-            carried = mesh.parts_since(snap).get(kind, 0)
+            carried = mesh.parts_since(snap, axis).get(kind, 0)
         ms = statistics.median(dev_ms)
-        out[kind] = {"ms": ms, "host_ms": statistics.median(host_ms),
+        out[name] = {"ms": ms, "host_ms": statistics.median(host_ms),
                      "bytes_between_parts": carried,
                      "GB_per_s": carried / ms / 1e6 if ms > 0 else None}
     return out
 
 
-def _cards_paper(params, pipeline, digests, devices):
-    """(b)/(c) of phase ``cards``: ``paper_full`` under each of DIST_MAPS on
-    the mesh split over ``devices``: hmult → rescale → hrot_hoisted([1, 4])
-    on the pipeline phase's keys and ciphertexts, bytes equal to the
-    one-part sharded engine's and the single-device eager engine's
-    (``digests``), decode error < 1e-2, executed collectives equal to the
-    prediction, every path kernel launched on every card of the mesh; warm
-    ms per op (median of 3, host clock after a sync of every card),
-    launches per op, card and kernel, bytes between blocks and parts."""
+def _batched_reference(params, keys, c1, c2):
+    """The batched families' digests at ``paper_full`` on the single-device
+    eager engine (no scope), on the card."""
+    from repro_torch.core import _dist_selftest as S, ckks, encoding as enc, poly as pl
+    dev = c1.a.device
+    make_pt = lambda res, basis: pl.RnsPoly(pl.to_tensor(res, dev), basis, pl.COEFF)
+    with ckks.use_engine("eager"):
+        return S.batched_digests(S.batched_chain(ckks, enc, make_pt, params, keys,
+                                                 c1, c2, rots=CARDS_BATCH_ROTS))
+
+
+def _cards_paper(params, pipeline, digests, devices, maps=DIST_MAPS,
+                 batched_ref=None):
+    """(b)/(c) of phase ``cards``: ``paper_full`` under each of ``maps`` on
+    the mesh's ``devices`` (a sequence, or a grid of rows): hmult → rescale
+    → hrot_hoisted([1, 4]) on the pipeline phase's keys and ciphertexts,
+    bytes equal to the one-part sharded engine's and the single-device eager
+    engine's (``digests``), decode error < 1e-2; then the batched families
+    (``_dist_selftest.batched_chain``, B = 4, on a key set sharded anew)
+    against ``batched_ref``, cold and three times warm;
+    executed collectives equal to the prediction, bytes between parts per
+    axis equal to their closed forms on the first (cold: the key set just
+    sharded) and on each warm pass, every path kernel launched on every card
+    of the mesh; warm ms per op (median of 3, host clock after a sync of
+    every card), launches per op, card and kernel, bytes between blocks and
+    parts."""
     import numpy as np
-    from repro_torch.core import distributed as D, encoding as enc, keys as K
+    from repro_torch.core import (_dist_selftest as S, ckks, distributed as D,
+                                  encoding as enc, keys as K, poly as pl)
     from repro_torch.core.mapping import ClusterMap
     from repro_torch.kernels import config
     keys, (c1, c2) = pipeline["keys"], pipeline["inputs"]
-    sync = _sync_cards(devices)
+    flat = _flat(devices)
+    sync = _sync_cards(flat)
+    rows = len(devices) if isinstance(devices[0], list) else 1
+    cols = len(flat) // rows
     n = 16
     prod = np.concatenate([_messages(n, 1) * _messages(n, 2),
                            np.zeros(params.slots - n)])
     want = {"rescale": prod[:n], "rot1": np.roll(prod, -1)[:n],
             "rot4": np.roll(prod, -4)[:n]}
-    maps = {}
-    for name in DIST_MAPS:
+    out_maps = {}
+    for name in maps:
         cm = ClusterMap.parse(name)
+        closed = {w: S.pipeline_bytes_closed_form(params, cm, rows, cols, (1, 4), w)
+                  for w in (False, True)}
+        closed_b = {w: S.batched_bytes_closed_form(params, cm, rows, cols,
+                                                   CARDS_BATCH_ROTS, w)
+                    for w in (False, True)}
         with D.dist_scope(cm, devices=devices) as ctx:
             dk = D.shard_keyset(keys, ctx)
             d1, d2 = D.shard_ciphertext(c1, ctx), D.shard_ciphertext(c2, ctx)
@@ -1989,6 +2077,37 @@ def _cards_paper(params, pipeline, digests, devices):
                    "rescale": D.unshard_ciphertext(out["rescale"], ctx),
                    "rot1": D.unshard_ciphertext(out["hoisted_rotations"][0], ctx),
                    "rot4": D.unshard_ciphertext(out["hoisted_rotations"][1], ctx)}
+            batched = None
+            if batched_ref is not None:
+                dkb = D.shard_keyset(keys, ctx)
+                make_pt = lambda res, basis: D.shard_poly(
+                    pl.RnsPoly(pl.to_tensor(res, flat[0]), basis, pl.COEFF), ctx)
+                runs = []
+                for _ in range(4):                       # cold, then 3 warm
+                    timed = _TimedCkks(sync, ctx.mesh)
+                    before_b = config.collective_counts()
+                    stages = S.batched_chain(timed, enc, make_pt, params, dkb, d1, d2,
+                                             rots=CARDS_BATCH_ROTS)
+                    runs.append((timed.rec, config.collectives_since(before_b)))
+                stages = {k: [D.unshard_ciphertext(c, ctx) for c in v]
+                          for k, v in stages.items()}
+                (cold, counted_b), *warm_b = runs
+                warm_b = [w for w, _ in warm_b]
+                executed_b = collections.Counter()
+                for r in cold.values():
+                    executed_b.update(r["collectives"])
+                batched = {
+                    "equal_to_single_device_eager":
+                        S.batched_digests(stages) == batched_ref,
+                    "collectives_executed": dict(executed_b),
+                    "collectives_counted": counted_b,
+                    "bytes_between_parts": {"cold": _sum_axis_bytes(cold.values()),
+                                            "warm": [_sum_axis_bytes(w.values())
+                                                     for w in warm_b]},
+                    "closed_form": {"cold": closed_b[False], "warm": closed_b[True]},
+                    "ops": cold, "warm_ms": {op: statistics.median(w[op]["ms"]
+                                                                   for w in warm_b)
+                                             for op in cold}}
         dig = {k: _digest(c) for k, c in got.items()}
         errors = {}
         for stage, z in want.items():
@@ -1996,22 +2115,27 @@ def _cards_paper(params, pipeline, digests, devices):
             dec = enc.decode(K.decrypt(ct, keys.sk), ct.scale, ct.basis, params.N, n)
             errors[stage] = float(np.max(np.abs(dec - z)))
         per_card = collections.defaultdict(collections.Counter)
-        for r in rec.values():
+        for r in list(rec.values()) + list((batched or {}).get("ops", {}).values()):
             for card, counts in r["launches_per_card"].items():
                 per_card[card].update(counts)
-        maps[name] = {
+        out_maps[name] = {
+            "grid": [rows, cols],
             "equal_to_one_part_engine": dig == digests[name],
             "equal_to_single_device_eager": dig == digests["eager"],
             "max_error": errors, "collectives_executed": dict(executed),
             "collectives_counted": counted, "ops": rec,
+            "bytes_between_parts": {"cold": _sum_axis_bytes(rec.values()),
+                                    "warm": [_sum_axis_bytes(w.values()) for w in warm]},
+            "closed_form": {"cold": closed[False], "warm": closed[True]},
             "warm_ms": {op: statistics.median(w[op]["ms"] for w in warm)
                         for op in rec},
+            "batched": batched,
             "launches_per_pass_per_card": {c: dict(v) for c, v in per_card.items()}}
-    return maps
+    return out_maps
 
 
 def _check_cards_paper(maps, devices, where):
-    cards = sorted(set(map(str, devices)))
+    cards = sorted(set(map(str, _flat(devices))))
     for name, m in maps.items():
         if not (m["equal_to_one_part_engine"] and m["equal_to_single_device_eager"]):
             raise AssertionError(f"cards {where} {name}: bytes differ from the "
@@ -2023,6 +2147,24 @@ def _check_cards_paper(maps, devices, where):
             raise AssertionError(f"cards {where} {name}: executed collectives "
                                  f"{m['collectives_executed']} against the "
                                  f"prediction {m['collectives_counted']}")
+        bp, cf = m["bytes_between_parts"], m["closed_form"]
+        if bp["cold"] != cf["cold"] or any(w != cf["warm"] for w in bp["warm"]):
+            raise AssertionError(f"cards {where} {name}: bytes between parts "
+                                 f"{bp} against the closed form {cf}")
+        b = m["batched"]
+        if b is not None:
+            if not b["equal_to_single_device_eager"]:
+                raise AssertionError(f"cards {where} {name}: the batched families' "
+                                     "bytes differ from the single-device engine")
+            if b["collectives_executed"] != b["collectives_counted"]:
+                raise AssertionError(f"cards {where} {name}: batched collectives "
+                                     f"{b['collectives_executed']} against "
+                                     f"{b['collectives_counted']}")
+            bb, bcf = b["bytes_between_parts"], b["closed_form"]
+            if bb["cold"] != bcf["cold"] or any(w != bcf["warm"] for w in bb["warm"]):
+                raise AssertionError(f"cards {where} {name}: batched bytes between "
+                                     f"parts {b['bytes_between_parts']} against "
+                                     f"{b['closed_form']}")
         per_card = m["launches_per_pass_per_card"]
         if sorted(per_card) != cards:
             raise AssertionError(f"cards {where} {name}: kernels launched on "
@@ -2042,91 +2184,125 @@ def _check_cards_paper(maps, devices, where):
                                  f"launched on {card}")
 
 
+def _cards_grids(params, pipeline, digests, devs, grids, batched_ref):
+    """(b) or (c): ``paper_full`` on each of ``grids`` of ``devs`` — both of
+    DIST_MAPS on one row, GRID_MAP on several — checked per grid."""
+    from repro_torch.core import _dist_selftest as S
+    out = {}
+    for rows, cols in grids:
+        grid = S.grid_of(devs, rows)
+        maps = DIST_MAPS if rows == 1 else (GRID_MAP,)
+        out[f"{rows}x{cols}"] = m = _cards_paper(params, pipeline, digests, grid,
+                                                 maps, batched_ref)
+        _check_cards_paper(m, grid, f"{rows}x{cols} on {sorted(set(devs))}")
+    return out
+
+
 def phase_cards(params, pipeline, digests):
-    """The distributed engine's mesh split into four parts along "coef":
-    (a) at N = 256 on every map of 1–16 shards with 4 | cs, on four parts
-    of the card and four parts of the CPU: each primitive's bytes equal on
-    both and to the permuted single-device result, its bytes between parts
-    their closed form, the pipeline's digests equal on both and to the JAX
-    package's single-device eager digests, both collective tallies equal
-    to the prediction and the one-part mesh's; (b) ``paper_full`` on four
-    parts of cuda:0 (:func:`_cards_paper`); (c) the same on distinct cards
-    (four, or two with two or three on the machine) with each "coef"
-    collective timed alone between them (:func:`_collective_times`); on a
-    machine with one card (c) does not run and the phase says so.  No plain
-    version may run on card data.  Returns the per-kernel launches of (b)'s
-    passes."""
+    """The distributed engine's mesh split into four parts on the grids of
+    CARDS_GRIDS: (a) at N = 256 on every map of 1–16 shards each grid splits
+    (its rows divide lc, its columns cs), on four parts of the card and four
+    parts of the CPU: each primitive's bytes equal on both and to the
+    permuted single-device result, its bytes between parts their closed
+    form per axis, the pipeline's and the batched families' digests equal on
+    both and to the JAX package's single-device eager digests, both
+    collective tallies equal to the prediction and the one-part mesh's, the
+    bytes between parts per axis equal to their closed forms; (b)
+    ``paper_full`` on the grids of four parts of cuda:0
+    (:func:`_cards_grids`); (c) the same on distinct cards (four: every
+    grid; two or three: 1 × 2 and 2 × 1) with a collective along each axis
+    timed alone between them (:func:`_collective_times`); on a machine with
+    one card (c) does not run and the phase says so.  No plain version may
+    run on card data.  Returns the per-kernel launches of (b)'s passes."""
     import numpy as np
     import torch
     from repro_torch.core import _dist_selftest as S, distributed as D, params as prm
     t0 = time.perf_counter()
     card0 = "cuda:0"
-    want = json.loads(DIST_REF.read_text())["N"]["256"]["engines"]["eager"]
+    ref = json.loads(DIST_REF.read_text())
+    want = ref["N"]["256"]["engines"]["eager"]
+    want_b = ref["batched"]["256"]["digests"]
     p = prm.make_params(N=256, L=8, K=2, dnum=4)
-    maps = [cm for n in (1, 2, 4, 8, 16) for cm in S.maps_for_parts(n, CARDS_PARTS)]
     inputs = {dev: S._make_inputs(p, device=dev) for dev in ("cpu", card0)}
-    cross = {}
+    cross, one_part = {}, {}
     with plain_calls_on_card() as plain:
-        for cm in maps:
-            runs = {}
-            for dev in ("cpu", card0):
-                devs = [dev] * CARDS_PARTS
-                with D.dist_scope(cm, device=dev, devices=devs) as ctx:
-                    prims = S._prim_checks(ctx, p, np.random.default_rng(11), dev)
-                runs[dev] = (prims, S._pipeline_run(cm, p, *inputs[dev], dev, devs))
-            one = S._pipeline_run(cm, p, *inputs[card0], card0)
-            (pc, qc), (pg, qg) = runs["cpu"], runs[card0]
-            cross[cm.name] = {
-                "prims_equal": all(pc[k]["digest"] == pg[k]["digest"] for k in pc),
-                "prims_exact": all(v["exact"] for v in pg.values()),
-                "counts_match": all(v["counts_match"] for v in pg.values()),
-                "pipeline_equal": qc == qg,
-                "pipeline_equals_jax": qg["digests"] == want,
-                "tallies_equal_one_part": (qg["executed"], qg["bytes"])
-                                          == (one["executed"], one["bytes"]),
-                "collectives": qg["executed"], "predicted": qg["collectives"],
-                "bytes_between_parts": qg["part_bytes"]}
-        paper = {"parts_of_one_card": _cards_paper(params, pipeline, digests,
-                                                   [card0] * CARDS_PARTS)}
+        for rows, cols in CARDS_GRIDS:
+            maps = [cm for n in (1, 2, 4, 8, 16)
+                    for cm in S.maps_for_parts(n, CARDS_PARTS, rows)]
+            for cm in maps:
+                runs = {}
+                for dev in ("cpu", card0):
+                    devs = S.grid_of([dev] * CARDS_PARTS, rows)
+                    with D.dist_scope(cm, device=dev, devices=devs) as ctx:
+                        prims = S._prim_checks(ctx, p, np.random.default_rng(11), dev)
+                    runs[dev] = (prims, S._pipeline_run(cm, p, *inputs[dev], dev, devs),
+                                 S._batched_run(cm, p, *inputs[dev], dev, devs))
+                if cm.name not in one_part:
+                    one_part[cm.name] = (S._pipeline_run(cm, p, *inputs[card0], card0),
+                                         S._batched_run(cm, p, *inputs[card0], card0))
+                one, one_b = one_part[cm.name]
+                (pc, qc, bc), (pg, qg, bg) = runs["cpu"], runs[card0]
+                cross[f"{cm.name} {rows}x{cols}"] = {
+                    "prims_equal": all(pc[k]["digest"] == pg[k]["digest"] for k in pc),
+                    "prims_exact": all(v["exact"] for v in pg.values()),
+                    "counts_match": all(v["counts_match"] for v in pg.values()),
+                    "pipeline_equal": qc == qg, "batched_equal": bc == bg,
+                    "pipeline_equals_jax": qg["digests"] == want,
+                    "batched_equals_jax": bg["digests"] == want_b,
+                    "tallies_equal_one_part": (qg["executed"], qg["bytes"], bg["executed"],
+                                               bg["bytes"]) == (
+                        one["executed"], one["bytes"], one_b["executed"], one_b["bytes"]),
+                    "collectives": [qg["executed"], bg["executed"]],
+                    "predicted": [qg["collectives"], bg["collectives"]],
+                    "closed_form_equal": (
+                        qg["axis_bytes"] == S.pipeline_bytes_closed_form(p, cm, rows, cols)
+                        and bg["axis_bytes"] == S.batched_bytes_closed_form(p, cm, rows,
+                                                                            cols)),
+                    "bytes_between_parts": [qg["axis_bytes"], bg["axis_bytes"]]}
+        t_a = time.perf_counter() - t0
+        keys, (c1, c2) = pipeline["keys"], pipeline["inputs"]
+        batched_ref = _batched_reference(params, keys, c1, c2)
+        paper = {"parts_of_one_card": _cards_grids(
+            params, pipeline, digests, [card0] * CARDS_PARTS, CARDS_GRIDS, batched_ref)}
         count = torch.cuda.device_count()
         distinct = None
         if count >= 2:
             nd = CARDS_PARTS if count >= CARDS_PARTS else 2
             devs = [f"cuda:{k}" for k in range(nd)]
-            paper["distinct_cards"] = _cards_paper(params, pipeline, digests, devs)
+            grids = CARDS_GRIDS if nd == CARDS_PARTS else ((1, 2), (2, 1))
+            paper["distinct_cards"] = _cards_grids(params, pipeline, digests, devs,
+                                                   grids, batched_ref)
             gen = torch.Generator(device=card0).manual_seed(SEED + 24)
-            mesh = D.Mesh(4, 4, devs)
-            distinct = {"devices": devs,
-                        "collectives": _collective_times(mesh, params, gen)}
+            distinct = {"devices": devs, "collectives": {
+                **_collective_times(D.Mesh(4, 4, devs), params, gen),
+                **_collective_times(D.Mesh(4, 4, S.grid_of(devs, nd)), params, gen)}}
     cards = len(distinct["devices"]) if distinct else 1
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    emit({"phase": "cards", "parts": CARDS_PARTS, "cards": cards,
+    emit({"phase": "cards", "parts": CARDS_PARTS, "grids": CARDS_GRIDS, "cards": cards,
           "nvidia_smi_per_card": smi,
           "distinct_cards": distinct if distinct else
           {"ran": False, "why": f"the machine has {torch.cuda.device_count()} "
                                 "card: (c) needs two or more"},
-          "cross_N256": cross, "paper_full": paper,
+          "cross_N256": cross, "cross_N256_seconds": t_a, "paper_full": paper,
           "plain_calls_on_card": dict(plain), "seconds": time.perf_counter() - t0})
     if plain:
         raise AssertionError(f"plain versions ran on card data: {dict(plain)}")
     bad = {name: r for name, r in cross.items()
            if not (r["prims_equal"] and r["prims_exact"] and r["counts_match"]
-                   and r["pipeline_equal"] and r["pipeline_equals_jax"]
-                   and r["tallies_equal_one_part"]
+                   and r["pipeline_equal"] and r["batched_equal"]
+                   and r["pipeline_equals_jax"] and r["batched_equals_jax"]
+                   and r["tallies_equal_one_part"] and r["closed_form_equal"]
                    and r["collectives"] == r["predicted"])}
     if bad:
         raise AssertionError(f"cards: maps differ at N = 256: {bad}")
-    _check_cards_paper(paper["parts_of_one_card"], [card0] * CARDS_PARTS,
-                       "parts of one card")
-    if distinct:
-        _check_cards_paper(paper["distinct_cards"], distinct["devices"],
-                           "distinct cards")
     total = collections.Counter()
-    for m in paper["parts_of_one_card"].values():
-        for r in m["ops"].values():
-            total.update(r["launches"])
+    for grid in paper["parts_of_one_card"].values():
+        for m in grid.values():
+            for r in list(m["ops"].values()) + list((m["batched"] or {}).get(
+                    "ops", {}).values()):
+                total.update(r["launches"])
     return dict(total)
 
 

@@ -146,11 +146,14 @@ def mod_up_digit(digit: pl.RnsPoly, full_q: tuple[int, ...],
             order.append(nd + next(it))
         return np.array(order, dtype=np.int64)
 
+    basis = tuple(full_q) + tuple(p)
+    if _parts.rows_of(conv_ntt.data) > 1:     # a grid: regroup between its rows
+        return pl.RnsPoly(pl.take_limbs([digit_ntt.data, conv_ntt.data],
+                                        build_perm()), basis, pl.NTT)
     key = ("modup_perm", digit.basis, tuple(full_q), tuple(p))
     stacked = torch.cat([digit_ntt.data, conv_ntt.data], dim=-2)
     return pl.RnsPoly(_parts.on_each(stacked, lambda t: t.index_select(
-        -2, const_cache.device_table(key, build_perm, t.device))),
-        tuple(full_q) + tuple(p), pl.NTT)
+        -2, const_cache.device_table(key, build_perm, t.device))), basis, pl.NTT)
 
 
 def mod_down(x: pl.RnsPoly, q_basis: tuple[int, ...],
@@ -164,8 +167,7 @@ def mod_down(x: pl.RnsPoly, q_basis: tuple[int, ...],
     """
     ellq = len(q_basis)
     assert x.basis == tuple(q_basis) + tuple(p) and x.domain == pl.NTT
-    xq = pl.RnsPoly(x.data[..., :ellq, :], tuple(q_basis), pl.NTT)
-    xp = pl.RnsPoly(x.data[..., ellq:, :], tuple(p), pl.NTT)
+    xq, xp = x.limbs(slice(None, ellq)), x.limbs(slice(ellq, None))
     xp_in_q = bconv(xp.to_coeff(), tuple(q_basis)).to_ntt()
     return xq.sub_scaled(xp_in_q, _moddown_pinv(tuple(q_basis), tuple(p)))
 

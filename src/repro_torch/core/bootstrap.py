@@ -127,6 +127,7 @@ def setup_bootstrap(params: CkksParams, hamming: int = 8, K_range: int = 4,
 def mul_const_vec(ct: ckks.Ciphertext, vec: np.ndarray,
                   params: CkksParams) -> ckks.Ciphertext:
     """ct ⊙ complex constant vector, encoded at exactly the top prime."""
+    ckks._refuse_layout_blind("bootstrap.mul_const_vec")
     q_top = float(ct.basis[-1])
     pt = enc.encode(np.asarray(vec, dtype=np.complex128), q_top, ct.basis,
                     params.N)
@@ -149,6 +150,7 @@ def linear_transform(ct: ckks.Ciphertext, diags: dict[int, np.ndarray],
     ``hrot_many`` launch (non-min-KS) or fold serially with the single
     evk_bs (minimum key-switching §V-B).
     """
+    ckks._refuse_layout_blind("bootstrap.linear_transform (encode_diag)")
     n, bs = ctx.slots, ctx.bs
     params, keys = ctx.params, ctx.keys
     q_top = float(ct.basis[-1])

@@ -112,9 +112,8 @@ def mod_up_all_digits(d: pl.RnsPoly, params: CkksParams) -> list[pl.RnsPoly]:
     start = 0
     for dj in params.digit_bases(ell):
         sl = slice(start, start + len(dj))
-        digit = pl.RnsPoly(d_coeff.data[..., sl, :], dj, pl.COEFF)
-        digit_ntt = pl.RnsPoly(d_ntt.data[..., sl, :], dj, pl.NTT)
-        exts.append(bc.mod_up_digit(digit, full_q, params.p, digit_ntt))
+        exts.append(bc.mod_up_digit(d_coeff.limbs(sl), full_q, params.p,
+                                    d_ntt.limbs(sl)))
         start += len(dj)
     return exts
 
@@ -267,6 +266,18 @@ def _monomial_tables(basis: tuple[int, ...], N: int, power: int, device):
     return const_cache.device_table(("monomial", basis, N, power), build, device)
 
 
+def _refuse_layout_blind(op: str) -> None:
+    """Raise under an active ``dist_scope``: ``op`` builds its table or
+    plaintext in natural order, and the scope holds data in the four-step
+    layouts, so its bytes would be wrong (ROADMAP A.17: a layout-aware
+    bootstrap; the reference has none either)."""
+    from . import distributed as dist
+    if dist.dist_active() is not None:
+        raise NotImplementedError(
+            f"{op} under dist_scope: its table is in natural order, the scope's "
+            "data in the four-step layouts (ROADMAP A.17, layout-aware bootstrap)")
+
+
 def mul_monomial(ct: Ciphertext, power: int) -> Ciphertext:
     """Exact multiplication by X^power (negacyclic) — free: no level, no KS.
 
@@ -277,6 +288,7 @@ def mul_monomial(ct: Ciphertext, power: int) -> Ciphertext:
     data each half is one EFU ``mul`` against the staged table; on the CPU a
     Shoup product, as the reference.  Both give the canonical product.
     """
+    _refuse_layout_blind("mul_monomial")
     N = ct.a.N
     power %= 2 * N
 
@@ -561,13 +573,16 @@ def hrot_by_progression(ct: Ciphertext, step: int, count: int,
 # counterpart byte for byte: only the dispatch granularity changes.
 # ----------------------------------------------------------------------------
 
-def _stack_polys(ps: list[pl.RnsPoly], device=None) -> pl.RnsPoly:
-    """B same-basis polys → one (B, ℓ, N) NTT-domain poly on ``device``
+def _stack_polys(ps: list[pl.RnsPoly], devices=None) -> pl.RnsPoly:
+    """B same-basis polys → one (B, ℓ, N) NTT-domain poly on ``devices``
     (default: the first poly's): stacked there, then one forward transform
-    of the stack when the members are in the coefficient domain."""
-    device = ps[0].device if device is None else torch.device(device)
-    ps = [p if p.device == device else pl.RnsPoly(p.data.to(device), p.basis, p.domain)
-          for p in ps]
+    of the stack when the members are in the coefficient domain.  A
+    member on another single device is moved; values held as a mesh's
+    parts are never moved (their stack maps part by part)."""
+    devices = ps[0].devices if devices is None else tuple(devices)
+    if len(devices) == 1:
+        ps = [p if p.devices == devices
+              else pl.RnsPoly(p.data.to(devices[0]), p.basis, p.domain) for p in ps]
     if len({p.domain for p in ps}) > 1:
         ps = [p.to_ntt() for p in ps]
     stack = torch.stack([p.data for p in ps])
@@ -641,7 +656,7 @@ def pmult_many(cts: list[Ciphertext], pts: list[pl.RnsPoly],
         if pt.domain == pl.COEFF:
             trace.record("ntt", pt.ell, pt.N)
     with trace.unrecorded():
-        p = _stack_polys(pts, device=a.device)
+        p = _stack_polys(pts, devices=a.devices)
         out_a, out_b = a * p, b * p
     B, ell, N = len(cts), len(a.basis), cts[0].a.N
     trace.record("elt_mul", ell, N, 2 * B)
@@ -742,11 +757,11 @@ def _rescale_once(a: pl.RnsPoly, b: pl.RnsPoly, scale: float):
     # both ciphertext components ride one leading axis: the top-limb iNTT,
     # the vectorized centered lift, the re-NTT and the subtract-and-scale by
     # q_ℓ⁻¹ each dispatch once for the pair.
-    xn = torch.stack([a.to_ntt().data, b.to_ntt().data])
-    last = pl.RnsPoly(xn[..., -1:, :], (ql,), pl.NTT).to_coeff()
+    xn = pl.RnsPoly(torch.stack([a.to_ntt().data, b.to_ntt().data]), basis, pl.NTT)
+    last = xn.limbs(slice(-1, None)).to_coeff()
     lifted = bc.centered_lift_single(last.data[..., 0, :], ql, new_basis)
     lifted_ntt = pl.RnsPoly(lifted, new_basis, pl.COEFF).to_ntt()
-    head = pl.RnsPoly(xn[..., :-1, :], new_basis, pl.NTT)
+    head = xn.limbs(slice(None, -1))
     out = head.sub_scaled(lifted_ntt, _rescale_qinv(basis))
     return (pl.RnsPoly(out.data[0], new_basis, pl.NTT),
             pl.RnsPoly(out.data[1], new_basis, pl.NTT), scale / ql)
@@ -754,8 +769,5 @@ def _rescale_once(a: pl.RnsPoly, b: pl.RnsPoly, scale: float):
 
 def level_drop(ct: Ciphertext, ell: int) -> Ciphertext:
     """Drop to ℓ limbs without division (modulus switching to align levels)."""
-    basis = ct.basis[:ell]
-    return Ciphertext(
-        pl.RnsPoly(ct.a.data[..., :ell, :], basis, ct.a.domain),
-        pl.RnsPoly(ct.b.data[..., :ell, :], basis, ct.b.domain),
-        ct.scale)
+    return Ciphertext(ct.a.limbs(slice(None, ell)), ct.b.limbs(slice(None, ell)),
+                      ct.scale)

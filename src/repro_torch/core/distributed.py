@@ -1,13 +1,18 @@
 """Distributed FHE primitives under a ClusterMap (paper §IV–§V), executed.
 
-A **mesh** here is one process and one device holding ``lc × cs`` logical
-shards: ``lc`` limb clusters (the "limb" axis) of ``cs`` cores each (the
-"coef" axis).  A sharded :class:`~repro_torch.core.poly.RnsPoly` keeps one
-global (…, ℓ, N) tensor in the scope's layout; shard (i, j) is the block of
-ℓ/lc contiguous limbs by N/cs contiguous coefficients, the block
-``P("limb", "coef")`` gives a JAX array.  Where ℓ does not split over the
-limb clusters, every cluster reads all ℓ limbs (the operand is replicated
-along "limb").  Ring ops outside the shard bodies run on the global tensor.
+A **mesh** here is one process holding ``lc × cs`` logical shards: ``lc``
+limb clusters (the "limb" axis) of ``cs`` cores each (the "coef" axis), on
+one device or on a grid of ``Dl × Dc`` devices (:class:`Mesh`).  A sharded
+:class:`~repro_torch.core.poly.RnsPoly` keeps one global (…, ℓ, N) tensor in
+the scope's layout (on a grid, its :class:`~repro_torch.core.parts.Parts`);
+shard (i, j) is the block of ℓ/lc contiguous limbs by N/cs contiguous
+coefficients, the block ``P("limb", "coef")`` gives a JAX array.  Where ℓ
+does not split over the limb clusters, every cluster reads all ℓ limbs (the
+operand is replicated along "limb", and over the grid's rows).  Ring ops
+outside the shard bodies run on the global tensor, part by part; an op that
+changes which limbs a row holds (rescale's limb drop, ModUp's digits and
+extension, ModDown's split, the level-sliced evks) regroups them between
+the rows (:meth:`Mesh.regroup`, a counted copy).
 
 The shard bodies are written against one block's local shape, with every
 block of the mesh as a batch dimension ((lc, cs, B, ℓ_loc, n_loc) tensors),
@@ -19,9 +24,11 @@ and read other blocks only through the mesh's collectives:
   (§V-A) — an ``all_to_all`` along "limb" into coefficient scattering, the
   full table, an ``all_to_all`` back — or limb duplication — an
   ``all_gather`` of the inputs along "limb", each limb cluster its own
-  destination rows (one grouped launch over every cluster,
-  ``bconv_ops.bconv_grouped``), no output collective — or "local" (no collective: every core already holds all limbs
-  of its coefficients), chosen per Eq. 3 by ``cost_model.bconv_method``;
+  destination rows (one grouped launch over every cluster of a part,
+  ``bconv_ops.bconv_grouped``), no output collective — or "local" (no
+  collective: every core already holds all limbs of its coefficients; on a
+  grid a row-split input is regrouped into replication first), chosen per
+  Eq. 3 by ``cost_model.bconv_method``;
 * the AutoU gather of the slot-parallel automorphism
   (``kernels.automorphism.ops.automorphism_blocks``) after ONE
   ``all_gather`` along "coef".
@@ -29,7 +36,9 @@ and read other blocks only through the mesh's collectives:
 Each collective materialises its result in a new buffer, so an exchange that
 put a chunk in the wrong place gives wrong bytes, and the mesh tallies what it
 executed: the kind, the count and the bytes moved between distinct blocks
-(:meth:`Mesh.executed`, :meth:`Mesh.bytes_moved`).  Independently, each
+(:meth:`Mesh.executed`, :meth:`Mesh.bytes_moved`), and on several devices
+the bytes copied between parts per kind and axis, regroups included
+(:meth:`Mesh.bytes_between_parts`).  Independently, each
 dispatch records the model's prediction (``cost_model.predict_collectives``)
 with ``kernels.config.count_collective``, as the reference does; tests
 compare the two tallies.
@@ -79,29 +88,49 @@ AXES = ("limb", "coef")
 
 class Mesh:
     """``lc × cs`` logical shards, axes ("limb", "coef"), on one device or
-    split over a sequence of ``D`` devices along "coef".
+    split over a grid of devices.
 
     On one device sharded values are (lc, cs, …) tensors, dim 0 the limb
     cluster i and dim 1 the core j of the cluster; the rest is one block's
-    local shape.  On ``D`` devices (``D`` divides ``cs``; repeats allowed:
-    ``["cuda:0"] * 4`` is four parts of one card) part k holds the cores
-    k·cs/D … (k+1)·cs/D − 1 of every limb cluster, and the blocks are a list
-    of ``D`` (lc, cs/D, …) tensors, one per part on its device.  The
-    collectives along "limb" stay inside each part; those along "coef" copy
-    chunks between parts (``Tensor.to``: a peer copy between distinct
-    cards, ordered against both cards' current streams).
+    local shape.  ``device`` may also be a sequence of ``Dc`` devices (the
+    coefficient axis split over them, ``Dc`` | ``cs``) or a grid, a sequence
+    of ``Dl`` rows of ``Dc`` devices each (``Dl`` | ``lc`` as well); repeats
+    are allowed: ``["cuda:0"] * 4`` is four parts of one card, ``[["cpu"] *
+    2] * 2`` a 2 × 2 grid of CPU parts.  Part (a, k) holds the limb clusters
+    a·lc/Dl … (a+1)·lc/Dl − 1 and of each the cores k·cs/Dc … (k+1)·cs/Dc − 1;
+    the blocks are then a list of ``Dl·Dc`` (lc/Dl, cs/Dc, …) tensors, one per
+    part on its device, in row-major order.  The collectives along "coef"
+    copy chunks between the parts of a grid row, those along "limb" between
+    the parts of a grid column (``Tensor.to``: a peer copy between distinct
+    cards, ordered against both cards' current streams).  Values between the
+    shard bodies are held as :class:`~repro_torch.core.parts.Parts`: split
+    over the rows when their limbs split over the limb clusters, else
+    replicated over them; :meth:`regroup` moves limbs between rows.
     """
 
     def __init__(self, limb: int, coef: int, device="cuda"):
         if limb < 1 or coef < 1:
             raise ValueError(f"mesh axes must be ≥ 1, got limb={limb}, coef={coef}")
-        devs = ((device,) if isinstance(device, (str, torch.device))
-                else tuple(device))
-        if not devs or coef % len(devs):
-            raise ValueError(f"{len(devs)} parts do not split the coef axis of "
+        if isinstance(device, (str, torch.device)):
+            grid = [[device]]
+        else:
+            grid = list(device)
+            if grid and not all(isinstance(r, (str, torch.device)) for r in grid):
+                grid = [list(r) for r in grid]
+            else:
+                grid = [grid]
+        if not grid or not grid[0] or any(len(r) != len(grid[0]) for r in grid):
+            raise ValueError(f"mesh devices {device!r}: not a grid of equal rows")
+        rows, cols = len(grid), len(grid[0])
+        if coef % cols:
+            raise ValueError(f"{cols} parts do not split the coef axis of "
                              f"{coef} cores")
+        if limb % rows:
+            raise ValueError(f"{rows} rows do not split the limb axis of "
+                             f"{limb} clusters")
         self.shape = {"limb": int(limb), "coef": int(coef)}
-        self.devices = tuple(torch.device(d) for d in devs)
+        self.rows, self.cols = rows, cols
+        self.devices = tuple(torch.device(d) for r in grid for d in r)
         for d in self.devices:
             if d.type == "cuda" and not (torch.cuda.is_available() and (
                     d.index is None or d.index < torch.cuda.device_count())):
@@ -109,6 +138,7 @@ class Mesh:
         self._count: collections.Counter = collections.Counter()
         self._bytes: collections.Counter = collections.Counter()
         self._part_bytes: collections.Counter = collections.Counter()
+        self._regroups = 0
 
     @property
     def lc(self) -> int:
@@ -130,8 +160,13 @@ class Mesh:
         return self.devices[0]
 
     def __repr__(self) -> str:
-        where = (self.devices[0] if self.n_parts == 1
-                 else [str(d) for d in self.devices])
+        if self.n_parts == 1:
+            where = self.devices[0]
+        elif self.rows == 1:
+            where = [str(d) for d in self.devices]
+        else:
+            where = [[str(d) for d in self.devices[a * self.cols:(a + 1) * self.cols]]
+                     for a in range(self.rows)]
         return f"Mesh(limb={self.lc}, coef={self.cs}, device={where})"
 
     # -- placement ------------------------------------------------------------
@@ -143,22 +178,34 @@ class Mesh:
 
     def part_devices(self, x) -> tuple[torch.device, ...]:
         """The devices of ``x``'s parts, checked against the mesh's: a plain
-        tensor on a one-part mesh, ``n_parts`` parts on a multi-part one."""
+        tensor on a one-part mesh, ``n_parts`` parts of its grid on a
+        multi-part one."""
         ps = _parts.parts_of(x)
-        if len(ps) != self.n_parts:
-            raise _parts.PartsError(f"a value in {len(ps)} part(s) on {self}")
+        if len(ps) != self.n_parts or _parts.rows_of(x) != self.rows:
+            raise _parts.PartsError(f"a value in {len(ps)} part(s) of "
+                                    f"{_parts.rows_of(x)} row(s) on {self}")
         for k, p in enumerate(ps):
             self.check_device(p, k)
         return tuple(p.device for p in ps)
 
+    def split_rows(self, ell: int) -> bool:
+        """Whether an ℓ-limb value is held split over the grid's rows (its
+        limbs split over the limb clusters), not replicated."""
+        return self.rows > 1 and ell % self.lc == 0
+
     def split(self, x: torch.Tensor):
         """A global tensor as the mesh's parts (on a one-part mesh, on its
-        device)."""
-        return _parts.split(x, self.devices)
+        device): split over the rows when its limbs split over the limb
+        clusters, else replicated over them."""
+        return _parts.split(x, self.devices, self.rows,
+                            self.split_rows(int(x.shape[-2])))
 
     def join(self, x) -> torch.Tensor:
         """The global tensor of a value on the mesh's first device."""
         return _parts.join(x, self.devices[0])
+
+    def row_of(self, part: int) -> int:
+        return part // self.cols
 
     def each(self, fn, blocks, *per_part):
         """``fn(blocks, *args)`` on every part: ``per_part`` are lists of one
@@ -180,13 +227,20 @@ class Mesh:
     def place(self, x, limb_sharded: bool):
         """The blocks of a global (…, ℓ, N) value as a (lc, cs, B, ℓ_loc,
         N/cs) view (B the leading dims flattened), or on a multi-part mesh a
-        list of each part's (lc, cs/D, B, ℓ_loc, N/cs) view: limbs split over
-        "limb" when ``limb_sharded``, else every cluster's view holds all ℓ."""
+        list of each part's (lc/Dl, cs/Dc, B, ℓ_loc, N/cs) view: limbs split
+        over "limb" when ``limb_sharded`` (a value replicated over the rows
+        first keeps its row's limbs, a local slice), else every cluster's
+        view holds all ℓ."""
         self.part_devices(x)
-        m = self.cs // self.n_parts
+        m, lr = self.cs // self.cols, self.lc // self.rows
         if self.n_parts == 1:
             return self._place(x, limb_sharded, self.lc, m)
-        return [self._place(p, limb_sharded, self.lc, m) for p in x.parts]
+        if limb_sharded:
+            x = x.row_split()
+        elif x.split:
+            raise _parts.PartsError(f"{x!r} is split over the rows: a replicated "
+                                    "operand was expected")
+        return [self._place(p, limb_sharded, lr, m) for p in x.parts]
 
     @staticmethod
     def _collect(blocks: torch.Tensor, limb_sharded: bool,
@@ -200,11 +254,21 @@ class Mesh:
 
     def collect(self, blocks, limb_sharded: bool, lead: tuple[int, ...]):
         """The global (*lead, ℓ, N) value of (lc, cs, B, ℓ_loc, n_loc)
-        blocks (a list of parts: their :class:`Parts`); a replicated operand
-        is read from limb cluster 0."""
+        blocks (a list of parts: their :class:`Parts`, split over the rows
+        when ``limb_sharded``); a replicated operand is read from each
+        part's first limb cluster."""
         if isinstance(blocks, list):
-            return _parts.Parts(self._collect(b, limb_sharded, lead) for b in blocks)
+            return _parts.Parts((self._collect(b, limb_sharded, lead) for b in blocks),
+                                self.rows, limb_sharded)
         return self._collect(blocks, limb_sharded, lead)
+
+    def _row_basis(self, basis: tuple[int, ...], limb_sharded: bool) -> list:
+        """Each part's moduli: its row's slice of ``basis`` when the blocks
+        are limb-sharded over a grid of several rows, else all of them."""
+        per = len(basis) // self.rows
+        return [tuple(basis[self.row_of(i) * per:(self.row_of(i) + 1) * per])
+                if limb_sharded and self.rows > 1 else tuple(basis)
+                for i in range(self.n_parts)]
 
     # -- collectives -------------------------------------------------------------
     def _axis(self, axis: str) -> int:
@@ -212,11 +276,22 @@ class Mesh:
             raise ValueError(f"unknown mesh axis {axis!r} — one of {AXES}")
         return AXES.index(axis)
 
-    def _record(self, kind: str, nbytes: int, part_bytes: int = 0) -> None:
+    def _groups(self, A: int, n_parts: int) -> list[list[int]]:
+        """The parts that exchange along axis A: a grid row along "coef", a
+        grid column along "limb" (each part alone on a one-part mesh)."""
+        if n_parts == 1:
+            return [[0]]
+        if A == 1:
+            return [list(range(a * self.cols, (a + 1) * self.cols))
+                    for a in range(self.rows)]
+        return [list(range(k, self.n_parts, self.cols)) for k in range(self.cols)]
+
+    def _record(self, kind: str, axis: str, nbytes: int, part_bytes: int = 0) -> None:
         self._count[kind] += 1
         self._bytes[kind] += int(nbytes)
-        if self.n_parts > 1:
-            self._part_bytes[kind] += int(part_bytes)
+        if self.n_parts > 1 and (axis == "coef" and self.cols > 1
+                                 or axis == "limb" and self.rows > 1):
+            self._part_bytes[(kind, axis)] += int(part_bytes)
 
     @staticmethod
     def _carry(x: torch.Tensor, device) -> tuple[torch.Tensor, int]:
@@ -237,11 +312,13 @@ class Mesh:
         order of the senders.  ``split``/``concat`` are negative local dims.
         A new buffer; each block moves (n − 1)/n of its words to others.  On
         a multi-part mesh ``x`` is the list of parts' blocks; along "coef"
-        each part sends every other part its chunks (a replicated operand's
+        each part sends the other parts of its grid row their chunks, along
+        "limb" the other parts of its grid column (a replicated operand's
         once for all limb clusters, :meth:`_carry`)."""
         xs = x if isinstance(x, list) else [x]
         A, x0 = self._axis(axis), xs[0]
-        n = x0.shape[A] * (len(xs) if A == 1 else 1)
+        groups = self._groups(A, len(xs))
+        n = x0.shape[A] * len(groups[0])
         s, c = x0.dim() + split, x0.dim() + concat
         if split >= 0 or concat >= 0 or s == c or s < 2 or c < 2:
             raise ValueError(f"all_to_all: split {split}, concat {concat} must "
@@ -253,21 +330,20 @@ class Mesh:
         # dim s: the destination block, then its chunk
         ys = [t.unflatten(s, (n, t.shape[s] // n)) for t in xs]
         carried = 0
-        if A == 0 or len(xs) == 1:              # every exchange inside a part
-            out = [self._a2a_finish(y, A, s, c) for y in ys]
-        else:
-            m = n // len(xs)
-            out = []
-            for k2, dev in enumerate(self.devices):
+        out = [None] * len(xs)
+        m = x0.shape[A]
+        for group in groups:
+            for r2, i2 in enumerate(group):
                 got = []
-                for k, y in enumerate(ys):
-                    piece = y.narrow(s, k2 * m, m)
-                    if k != k2:
-                        piece, b = self._carry(piece, dev)
+                for i in group:
+                    piece = ys[i].narrow(s, r2 * m, m) if len(group) > 1 else ys[i]
+                    if i != i2:
+                        piece, b = self._carry(piece, self.devices[i2])
                         carried += b
                     got.append(piece)
-                out.append(self._a2a_finish(torch.cat(got, dim=A), A, s, c))
-        self._record("all_to_all", nbytes * (n - 1) // n, carried)
+                out[i2] = self._a2a_finish(torch.cat(got, dim=A) if len(got) > 1
+                                           else got[0], A, s, c)
+        self._record("all_to_all", axis, nbytes * (n - 1) // n, carried)
         return out if isinstance(x, list) else out[0]
 
     @staticmethod
@@ -285,30 +361,31 @@ class Mesh:
         of its group concatenated along its local dim ``dim`` (negative), in
         their order.  A new buffer per block; each block receives n − 1
         blocks' words.  On a multi-part mesh ``x`` is the list of parts'
-        blocks; along "coef" each part receives every other part's blocks
-        once (a replicated operand's once for all limb clusters)."""
+        blocks; each part receives the blocks of the other parts of its grid
+        row ("coef") or column ("limb") once (a replicated operand's once
+        for all limb clusters)."""
         xs = x if isinstance(x, list) else [x]
         A, x0 = self._axis(axis), xs[0]
-        n = x0.shape[A] * (len(xs) if A == 1 else 1)
+        groups = self._groups(A, len(xs))
+        n = x0.shape[A] * len(groups[0])
         if dim >= 0 or x0.dim() + dim < 2:
             raise ValueError(f"all_gather: dim {dim} must be a negative local dim")
         d = x0.dim() + dim
         nbytes = sum(t.numel() for t in xs) * x0.element_size()
         carried = 0
-        if A == 0 or len(xs) == 1:
-            out = [self._gather_finish(t, A, d, t.shape[A]) for t in xs]
-        else:
-            out = []
-            for k2, dev in enumerate(self.devices):
+        out = [None] * len(xs)
+        for group in groups:
+            for i2 in group:
                 got = []
-                for k, t in enumerate(xs):
-                    if k != k2:
-                        t, b = self._carry(t, dev)
+                for i in group:
+                    t = xs[i]
+                    if i != i2:
+                        t, b = self._carry(t, self.devices[i2])
                         carried += b
                     got.append(t)
-                out.append(self._gather_finish(torch.cat(got, dim=A), A, d,
-                                               xs[k2].shape[A]))
-        self._record("all_gather", nbytes * (n - 1), carried)
+                out[i2] = self._gather_finish(torch.cat(got, dim=A) if len(got) > 1
+                                              else got[0], A, d, xs[i2].shape[A])
+        self._record("all_gather", axis, nbytes * (n - 1), carried)
         return out if isinstance(x, list) else out[0]
 
     @staticmethod
@@ -319,9 +396,75 @@ class Mesh:
         g = g.flatten(d - 1, d) if A < d else g.flatten(d, d + 1)
         return g.unsqueeze(A).expand(*x.shape[:A], m, *g.shape[A:]).contiguous()
 
+    # -- limbs between the rows of a grid -----------------------------------------
+    def regroup(self, srcs, idx, split: bool):
+        """The limbs ``idx`` of the values ``srcs`` concatenated along the
+        limb axis (each a :class:`Parts` of this grid, split over its rows
+        or replicated), as a value split over the rows (``split``: part
+        (a, k) the a-th of ``Dl`` equal slices of ``idx``) or replicated over
+        them.  Each part takes what its own row holds from its own part and
+        copies the rest from the part of its grid column whose row holds it;
+        the copies between parts are one "regroup" along "limb" in the
+        tally (none when every part holds what it needs: a local slice)."""
+        idx = [int(i) for i in idx]
+        ells = [s.shape[-2] for s in srcs]
+        where = [(si, j) for si, ell in enumerate(ells) for j in range(ell)]
+        if split and len(idx) % self.rows:
+            raise _parts.PartsError(f"{len(idx)} limbs do not split over "
+                                    f"{self.rows} rows")
+        per = len(idx) // self.rows
+        carried, out = 0, []
+        for i, dev in enumerate(self.devices):
+            a, k = divmod(i, self.cols)
+            need = idx[a * per:(a + 1) * per] if split else idx
+            groups: dict = {}
+            for pos, g in enumerate(need):
+                si, j = where[g]
+                src = srcs[si]
+                if src.split:
+                    rl = ells[si] // self.rows
+                    r, j = divmod(j, rl)
+                else:
+                    r = a
+                groups.setdefault((si, r), []).append((pos, j))
+            pieces, order = [], []
+            for (si, r), got in groups.items():
+                part = srcs[si].parts[r * self.cols + k]
+                loc = [j for _, j in got]
+                if loc == list(range(loc[0], loc[0] + len(loc))):
+                    piece = part[..., loc[0]:loc[0] + len(loc), :]
+                else:
+                    piece = part.index_select(
+                        -2, torch.tensor(loc, dtype=torch.int64, device=part.device))
+                if r != a:
+                    carried += piece.numel() * piece.element_size()
+                    if piece.device != dev:
+                        piece = piece.to(dev, non_blocking=True)
+                pieces.append(piece)
+                order += [pos for pos, _ in got]
+            t = torch.cat(pieces, dim=-2) if len(pieces) > 1 else pieces[0]
+            if order != sorted(order):
+                inv = [0] * len(order)
+                for o, pos in enumerate(order):
+                    inv[pos] = o
+                t = t.index_select(-2, torch.tensor(inv, dtype=torch.int64,
+                                                    device=t.device))
+            out.append(t)
+        if carried:
+            self._regroups += 1
+            self._part_bytes[("regroup", "limb")] += carried
+        return _parts.Parts(out, self.rows, split)
+
+    def replicate(self, x):
+        """A value replicated over the grid's rows (a row-split one regrouped
+        whole; anything else as it is)."""
+        if not (isinstance(x, _parts.Parts) and x.split):
+            return x
+        return self.regroup([x], range(x.shape[-2]), False)
+
     # -- the executed tally ---------------------------------------------------
     def executed(self) -> dict:
-        """Collectives this mesh executed, per kind."""
+        """Collectives this mesh's shard bodies executed, per kind."""
         return dict(self._count)
 
     def bytes_moved(self) -> dict:
@@ -329,13 +472,15 @@ class Mesh:
         whatever part each block is on."""
         return dict(self._bytes)
 
-    def bytes_between_parts(self) -> dict:
-        """Bytes the executed collectives copied from one part to another,
-        per kind (none on a one-part mesh)."""
-        return dict(self._part_bytes)
+    def bytes_between_parts(self, axis: str | None = None) -> dict:
+        """Bytes copied from one part to another, per kind ("all_to_all",
+        "all_gather", and "regroup" for limbs moved between rows), along
+        ``axis`` or both (none on a one-part mesh)."""
+        return _by_kind(self._part_bytes, axis)
 
-    def snapshot(self) -> tuple[dict, dict, dict]:
-        return self.executed(), self.bytes_moved(), self.bytes_between_parts()
+    def snapshot(self) -> tuple:
+        return (self.executed(), self.bytes_moved(), dict(self._part_bytes),
+                self._regroups)
 
     def since(self, snap) -> tuple[dict, dict]:
         """(counts, bytes) executed since a :meth:`snapshot` (kinds with no
@@ -343,14 +488,28 @@ class Mesh:
         c0, b0 = snap[0], snap[1]
         return _delta(self._count, c0), _delta(self._bytes, b0)
 
-    def parts_since(self, snap) -> dict:
-        """Bytes between parts since a :meth:`snapshot`, per kind."""
-        return _delta(self._part_bytes, snap[2])
+    def parts_since(self, snap, axis: str | None = None) -> dict:
+        """Bytes between parts since a :meth:`snapshot`, per kind, along
+        ``axis`` or both."""
+        return _by_kind(_delta(self._part_bytes, snap[2]), axis)
+
+    def regroups_since(self, snap) -> int:
+        """Regroups that copied limbs between rows since a :meth:`snapshot`."""
+        return self._regroups - snap[3]
 
     def reset(self) -> None:
         self._count.clear()
         self._bytes.clear()
         self._part_bytes.clear()
+        self._regroups = 0
+
+
+def _by_kind(part_bytes: dict, axis: str | None) -> dict:
+    out: collections.Counter = collections.Counter()
+    for (kind, ax), v in part_bytes.items():
+        if axis is None or ax == axis:
+            out[kind] += v
+    return {k: v for k, v in out.items() if v}
 
 
 def _delta(now: collections.Counter, before: dict) -> dict:
@@ -448,7 +607,7 @@ def _fourstep(mesh: Mesh, x, fc: nttm.FourStepConsts, part_fcs: list,
 def _bconv_ark(mesh: Mesh, x, src, dst):
     """ARK §V-A: all-to-all along "limb" into coefficient scattering, the
     full-table product (one launch over every block of a part), all-to-all
-    back."""
+    back (on a grid both exchanges cross the parts of a column)."""
     lead = x.shape[:-2]
     t = mesh.all_to_all(mesh.place(x, True), "limb", -1, -2)   # (ℓ, n/lc)
     out = mesh.each(lambda b: bconv_ops.bconv(b, src, dst), t)
@@ -465,7 +624,9 @@ def _bconv_limbdup(mesh: Mesh, x, src, dst, limb_in: bool):
     t = mesh.place(x, limb_in)
     if limb_in and mesh.lc > 1:                 # broadcast within the coef cluster
         t = mesh.all_gather(t, "limb", -2)
-    out = mesh.each(lambda b: bconv_ops.bconv_grouped(b, src, dst), t)
+    # each part converts into its row's limb clusters' destination rows
+    dsts = mesh._row_basis(dst, True) if isinstance(t, list) else [dst]
+    out = mesh.each(lambda b, d: bconv_ops.bconv_grouped(b, src, d), t, dsts)
     return mesh.collect(out, True, lead)
 
 
@@ -481,11 +642,14 @@ def _galois(mesh: Mesh, x, tables: list, limb_sharded: bool):
     return mesh.collect(out, limb_sharded, lead)
 
 
-def _part_fcs(mesh: Mesh, basis: tuple[int, ...], N: int, R: int, devices) -> list:
-    """Each part's (column-phase, row-phase) four-step tables on its card."""
-    D = mesh.n_parts
-    return [const_cache.device_four_step_part(basis, N, R, k, D, dev)
-            for k, dev in enumerate(devices)]
+def _part_fcs(mesh: Mesh, basis: tuple[int, ...], N: int, R: int, devices,
+              limb_sharded: bool = True) -> list:
+    """Each part's (column-phase, row-phase) four-step tables on its card:
+    its grid column's slice of the ring, over its row's limbs when the
+    blocks are limb-sharded (all limbs otherwise)."""
+    return [const_cache.device_four_step_part(b, N, R, i % mesh.cols, mesh.cols, dev)
+            for i, (b, dev) in enumerate(zip(mesh._row_basis(basis, limb_sharded),
+                                             devices))]
 
 
 # ----------------------------------------------------------------------------
@@ -601,7 +765,9 @@ class dist_scope:
 
     ``devices`` (a sequence of D devices, D dividing the block size) splits
     the mesh's coefficient axis over them: ``["cuda:0", "cuda:1"]``, or
-    ``["cuda:0"] * 4`` for four parts of one card.
+    ``["cuda:0"] * 4`` for four parts of one card; a grid of Dl rows of Dc
+    devices (Dl dividing the limb clusters) splits both axes:
+    ``[["cuda:0", "cuda:1"], ["cuda:2", "cuda:3"]]``, ``[["cpu"] * 2] * 2``.
     """
 
     def __init__(self, cm: ClusterMap | str, mesh: Mesh | None = None,
@@ -639,7 +805,8 @@ def _require() -> DistContext:
 
 def shard_poly(p, ctx: DistContext | None = None):
     """Natural-order RnsPoly → layout-permuted RnsPoly on the mesh: on its
-    device, or as its parts (part k on card k)."""
+    device, or as its parts (part i on the grid's device i; split over the
+    grid's rows when its limbs split over the limb clusters)."""
     ctx = ctx or _require()
     mesh = ctx.mesh
     data = p.data.to(mesh.devices[0])
@@ -722,7 +889,8 @@ def sharded_ntt(ctx: DistContext, x, basis, forward: bool = True):
     if prog is None:
         fc = const_cache.device_four_step_consts(basis, N, R, devices[0])
         prog = functools.partial(_fourstep, ctx.mesh, fc=fc,
-                                 part_fcs=_part_fcs(ctx.mesh, basis, N, R, devices),
+                                 part_fcs=_part_fcs(ctx.mesh, basis, N, R, devices,
+                                                    limb_sharded),
                                  forward=forward, limb_sharded=limb_sharded)
         _prog_cache[key] = prog
     _record_prediction("ntt" if forward else "intt", ctx)
@@ -742,9 +910,10 @@ def sharded_bconv(ctx: DistContext, x, src, dst):
     N = int(x.shape[-1])
     method = _cost.bconv_method(ctx.cm, len(src), len(dst), N=N)
     _record_prediction("bconv", ctx, n_in=len(src), n_out=len(dst), N=N)
-    if method == "local":
+    if method == "local":               # every part reads all limbs of its slice
         ctx.mesh.part_devices(x)
-        return _parts.on_each(x, lambda t: bconv_ops.bconv(t, src, dst))
+        return _parts.on_each(ctx.mesh.replicate(x),
+                              lambda t: bconv_ops.bconv(t, src, dst))
     if method == "ark":
         return _bconv_ark(ctx.mesh, x, src, dst)
     return _bconv_limbdup(ctx.mesh, x, src, dst, ctx.limb_sharded(len(src)))
@@ -767,17 +936,17 @@ def _galois_layout_table(N: int, R: int, g: int, device) -> torch.Tensor:
                                     lambda: _galois_layout_np(N, R, g), device)
 
 
-def _galois_part_tables(N: int, R: int, g: int, devices) -> list:
-    """Each part's slice of the table, positions [k·N/D, (k+1)·N/D), staged
-    on its card (the whole table on a one-part mesh)."""
-    D = len(devices)
-    if D == 1:
-        return [_galois_layout_table(N, R, g, devices[0])]
-    n = N // D
+def _galois_part_tables(N: int, R: int, g: int, devices, cols: int) -> list:
+    """Each part's slice of the table, positions [k·N/Dc, (k+1)·N/Dc) for
+    the part in grid column k, staged on its card (the whole table on a
+    one-column mesh)."""
+    if cols == 1:
+        return [_galois_layout_table(N, R, g, dev) for dev in devices]
+    n = N // cols
     return [const_cache.device_table(
-        ("dist_galois_part", N, R, g, k, D),
-        lambda k=k: _galois_layout_np(N, R, g)[k * n:(k + 1) * n], dev)
-        for k, dev in enumerate(devices)]
+        ("dist_galois_part", N, R, g, i % cols, cols),
+        lambda k=i % cols: _galois_layout_np(N, R, g)[k * n:(k + 1) * n], dev)
+        for i, dev in enumerate(devices)]
 
 
 def sharded_galois(ctx: DistContext, x, N: int, g: int):
@@ -785,7 +954,7 @@ def sharded_galois(ctx: DistContext, x, N: int, g: int):
     block gathers its outputs through the layout-conjugated perm table."""
     R = ctx.submodules(N)
     devices = ctx.mesh.part_devices(x)
-    tables = _galois_part_tables(N, R, g, devices)
+    tables = _galois_part_tables(N, R, g, devices, ctx.mesh.cols)
     limb_sharded = ctx.limb_sharded(int(x.shape[-2]))
     key = ("auto", ctx.mesh, N, limb_sharded)
     prog = _prog_cache.get(key)

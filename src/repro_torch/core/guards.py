@@ -133,7 +133,8 @@ def check_residues(data, basis: tuple[int, ...], op: str) -> None:
     """Every limb residue must sit in [0, q_i) — full mode only.
 
     ``data`` is an (…, ℓ, N) int32 torch tensor on any device (or the parts
-    of a multi-part value of the distributed engine, each scanned); the scan is
+    of a multi-part value of the distributed engine, each scanned against
+    its own limbs' moduli); the scan is
     one vectorized device compare + a host sync of a single boolean, so full
     mode costs one extra pass over each checked operand.  Residues are
     non-negative int32 (every prime is < 2³⁰), so a flipped bit 31 reads as
@@ -142,9 +143,10 @@ def check_residues(data, basis: tuple[int, ...], op: str) -> None:
     if _mode != "full":
         return
     import torch
-    from .parts import parts_of
-    for part in parts_of(data):
-        q = torch.tensor(basis, dtype=torch.int64,
+    from .parts import Parts, parts_of
+    slices = data.limb_slices() if isinstance(data, Parts) else [slice(None)]
+    for part, limbs in zip(parts_of(data), slices):
+        q = torch.tensor(basis[limbs], dtype=torch.int64,
                          device=part.device).reshape(-1, 1)
         d = part.to(torch.int64)
         if bool(((d < 0) | (d >= q)).any()):

@@ -86,8 +86,9 @@ class EvalKey:
         out = self._level_cache.get(key)
         if out is None:
             take = torch.tensor(idx, dtype=torch.int64)
-            sl = lambda p: pl.RnsPoly(_parts.on_each(
-                p.data, lambda t: t.index_select(-2, take.to(t.device))),
+            sl = lambda p: pl.RnsPoly(
+                pl.take_limbs([p.data], idx) if _parts.rows_of(p.data) > 1
+                else _parts.on_each(p.data, lambda t: t.index_select(-2, take.to(t.device))),
                 level_basis, p.domain)
             out = [(sl(aj), sl(bj))
                    for aj, bj in zip(self.a()[:ndig], self.b[:ndig])]

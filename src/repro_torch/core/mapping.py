@@ -92,7 +92,8 @@ class ClusterMap:
     def make_mesh(self, device="cuda", devices=None):
         """A mesh of (n_limb_clusters, block_size) logical shards, axes
         ("limb", "coef"), on one ``device``, or with ``devices`` its
-        coefficient axis split over a sequence of them."""
+        coefficient axis split over a sequence of them, or both axes over a
+        grid of rows of them (:class:`~repro_torch.core.distributed.Mesh`)."""
         from .distributed import Mesh  # lazy: distributed imports this module
         return Mesh(self.n_limb_clusters, self.block_size,
                     device if devices is None else devices)

@@ -164,10 +164,12 @@ class RnsPoly:
     def _ring(self, op: str, *others: "RnsPoly", scalars=None,
               domain: str | None = None) -> "RnsPoly":
         """``op`` on the operands' residues (:func:`_ring_op`), part by part
-        on a multi-part value, whose operands must hold the same parts."""
-        data = _parts.zip_parts(
-            functools.partial(_ring_op, op, self.basis, scalars),
-            self.data, *(o.data for o in others))
+        on a multi-part value, whose operands must hold the same parts; a
+        part split over the grid's rows takes its row's moduli and scalars."""
+        def part(limbs: slice, *datas):
+            return _ring_op(op, self.basis[limbs],
+                            None if scalars is None else scalars[limbs], *datas)
+        data = _parts.zip_limbs(part, self.data, *(o.data for o in others))
         return RnsPoly(data, self.basis, domain or self.domain)
 
     def __add__(self, o: "RnsPoly") -> "RnsPoly":
@@ -210,7 +212,11 @@ class RnsPoly:
 
     # -- structure ------------------------------------------------------------
     def limbs(self, idx: slice) -> "RnsPoly":
-        """Sub-poly restricted to a contiguous slice of limbs."""
+        """Sub-poly restricted to a contiguous slice of limbs (on a grid of
+        several rows, regrouped between them: :func:`take_limbs`)."""
+        if _parts.rows_of(self.data) > 1:
+            return RnsPoly(take_limbs([self.data], range(self.ell)[idx]),
+                           self.basis[idx], self.domain)
         return RnsPoly(self.data[..., idx, :], self.basis[idx], self.domain)
 
     def automorphism(self, perm: torch.Tensor) -> "RnsPoly":
@@ -233,6 +239,19 @@ class RnsPoly:
                            self.basis, NTT)
         return self.automorphism(
             const_cache.device_galois_perm(self.N, g, self.device))
+
+
+def take_limbs(datas, idx):
+    """The limbs ``idx`` of residue tensors concatenated along the limb axis,
+    on a mesh's grid of several rows: ``Mesh.regroup`` of the active scope,
+    into a value split over the rows when its limbs split over the limb
+    clusters and some operand is split, else replicated (every part then
+    reads its own part: a local slice)."""
+    from . import distributed as dist
+    mesh = dist._require().mesh
+    idx = list(idx)
+    split = mesh.split_rows(len(idx)) and any(d.split for d in datas)
+    return mesh.regroup(datas, idx, split)
 
 
 # ----------------------------------------------------------------------------

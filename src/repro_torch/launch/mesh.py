@@ -6,7 +6,7 @@ core count: ``limb`` = limb clusters, ``coef`` = cores per cluster (the block
 size).  The reference derives its core count from the JAX devices; here the
 cores are logical, so the count is the caller's, and it defaults to the
 paper's 16-core package.  ``devices`` splits the coefficient axis over
-several cards (or parts of one).  The reference's LM meshes and its
+several cards (or parts of one), or as a grid of rows of them both axes.  The reference's LM meshes and its
 multi-pod form wait for the LM scaffolding.
 """
 from __future__ import annotations
@@ -20,9 +20,10 @@ DEFAULT_CORES = 16
 def make_fhe_mesh(*, limb_clusters: int = 4, n_cores: int | None = None,
                   device="cuda", devices=None) -> Mesh:
     """CiFHER cluster mesh: ``limb`` = limb clusters, ``coef`` = cores per
-    cluster, on ``device`` or split over ``devices``.  Raises
-    ``ValueError`` when ``limb_clusters`` does not divide ``n_cores`` or
-    the devices do not divide the cores per cluster."""
+    cluster, on ``device`` or split over ``devices`` (a sequence, or a grid
+    of rows along "limb").  Raises ``ValueError`` when ``limb_clusters``
+    does not divide ``n_cores``, the grid's columns the cores per cluster or
+    its rows the limb clusters."""
     if n_cores is None:
         n_cores = DEFAULT_CORES
     if limb_clusters < 1 or n_cores % limb_clusters:

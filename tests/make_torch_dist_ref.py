@@ -15,6 +15,14 @@ writes into ``tests/torch_dist_ref.json`` the reference's
 secret, each evaluation key's seed and b-halves, both ciphertexts), so that
 ``tests/test_torch_distributed.py`` can show the port's own keygen and
 encryption carry the same bytes across and needs no JAX.
+
+    PYTHONPATH=src python tests/make_torch_dist_ref.py --batched
+
+adds (or replaces) only the key ``batched``: at N = 256 the digests of the
+batched families on the same inputs (``repro_torch.core._dist_selftest.
+batched_chain``: hmult_many → rescale_many → hrot_many → hadd_many →
+pmult_many, B = 4) on the JAX package's eager engine; every other entry of
+the file stays byte for byte.
 """
 from __future__ import annotations
 
@@ -60,13 +68,40 @@ def record(N: int) -> dict:
     return out
 
 
+def record_batched(N: int = 256) -> dict:
+    import jax.numpy as jnp
+    from repro.core import ckks, encoding as enc, params as prm, poly as pl
+    from repro.core._dist_selftest import _make_inputs
+    from repro_torch.core._dist_selftest import (BATCH_ROTS, batched_chain,
+                                                 batched_digests)
+    p = prm.make_params(N=N, L=8, K=2, dnum=4)
+    ks, ct1, ct2 = _make_inputs(p, seed=SEED)
+    make_pt = lambda res, basis: pl.RnsPoly(jnp.asarray(res), basis, pl.COEFF)
+    with ckks.use_engine("eager"):
+        stages = batched_chain(ckks, enc, make_pt, p, ks, ct1, ct2)
+    return {"N": N, "rotations": list(BATCH_ROTS), "engine": "eager",
+            "chain": "repro_torch.core._dist_selftest.batched_chain",
+            "digests": batched_digests(stages)}
+
+
 def main(argv=None) -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=OUT)
+    ap.add_argument("--batched", action="store_true",
+                    help="add only the batched families' digests at N = 256")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
+    if args.batched:
+        with open(args.out) as f:
+            doc = json.load(f)
+        doc["batched"] = {"256": record_batched(256)}
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.write("\n")
+        print(f"wrote {args.out} (batched) in {time.perf_counter() - t0:.1f} s")
+        return 0
     doc = {"config": {"params": "make_params(N, L=8, K=2, dnum=4)",
                       "inputs": "repro.core._dist_selftest._make_inputs",
                       "seed": SEED, "rotations": ROTS,
