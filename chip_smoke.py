@@ -212,8 +212,31 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               the last below the first; 3× the state's bytes free in the
               temporary directory; the final checkpoint restored by a fresh
               driver's resume byte for byte, which then runs step 10; ms per
-              step, checkpoint GB, save and restore seconds, peak memory; no
-              FHE kernel launched from (b) to (c);
+              step, checkpoint GB, save and restore seconds, peak memory;
+              then the other families (phase line ``lm_families``): (a) two
+              layers in float32 on card and CPU as above (one train step)
+              for deepseek-moe-16b (its dense first layer and one MoE layer;
+              the share of routed (token, k) pairs whose expert agrees, and
+              each differing token's top-k margin), zamba2-7b (attn_every 2),
+              xlstm-1.3b (slstm_every 2) and seamless-m4t-medium (2 + 2
+              layers, 1024 frames); (b) in bf16 at full width through
+              ``ServeEngine`` (8 slots, max_seq 256, 8 requests of 16 + 16
+              tokens): deepseek-moe-16b (28 layers), mixtral-8x7b (16 of its
+              32: all 32 take ≈ 93 GB), zamba2-7b (81), xlstm-1.3b (48),
+              and seamless-m4t-medium (12 + 12) by ``encdec.init_cache`` →
+              ``start_decode`` over 1024 stub frames → 16 greedy
+              ``decode_step``s for 4 sequences: every request done, tokens
+              in the vocabulary, logits finite; ms per decode step (median
+              of 10 after 3 warm, host clock ending in a sync) and its
+              device ms (CUDA-graph replays), idle share and aten ops,
+              beside its bytes bound (the weights a step reads, every KV
+              cache read, every recurrent state read and written), peak
+              memory, the forward-vs-decode argmax share over 32 positions
+              (reported); (c)
+              deepseek-moe-16b at full width with 2 layers, bf16, remat
+              policy ``outs``, 3 steps of 8 × 64 tokens through the demo's
+              driver: every loss finite, ms per step; no FHE kernel
+              launched from the first (b) to the last (c);
 17. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               (R × cluster size) and the single permutation at N = 2¹⁶,
               ℓ = 48, its cache in a temporary directory;
@@ -2420,6 +2443,31 @@ LM_SERVE = {"slots": 8, "max_seq": 256, "requests": 16, "prompt": 16, "new": 32}
 LM_TRAIN = {"layers": 2, "batch": 8, "seq": 64, "steps": 10, "every": 6, "keep": 2,
             "lr": 1.5e-3}
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+# The other families (ROADMAP A.13b).  (a) two layers in float32, card
+# against CPU: deepseek's dense first layer and one MoE layer, zamba2 with
+# the shared block after its second layer, xlstm with its second layer an
+# sLSTM, seamless with two encoder and two decoder layers over its 1024
+# frames
+LM_FAMILY_CHECKS = {
+    "deepseek_moe_16b": {"n_layers": 2},
+    "zamba2_7b": {"n_layers": 2, "attn_every": 2},
+    "xlstm_1_3b": {"n_layers": 2, "slstm_every": 2},
+    "seamless_m4t_medium": {"n_layers": 2, "enc_layers": 2},
+}
+# (b) served in bf16 at full width, every layer but mixtral's: its 32 layers
+# take ≈ 93 GB in bf16, more than the card's 80 GB, so it serves 16
+LM_FAMILY_SERVED = {"deepseek_moe_16b": None, "mixtral_8x7b": 16,
+                    "zamba2_7b": None, "xlstm_1_3b": None}
+LM_FAMILY_SERVE = {"slots": 8, "max_seq": 256, "requests": 8, "prompt": 16, "new": 16}
+# seamless: the LM decode engine refuses audio (as the reference's), so a
+# plain loop drives encdec: 4 sequences over 1024 stub frames, 16 greedy tokens
+LM_AUDIO = {"arch": "seamless_m4t_medium", "batch": 4, "frames": 1024, "new": 16,
+            "seq": 32}
+LM_WARM, LM_TIMED = 3, 10
+LM_AGREE_POSITIONS = 32        # teacher-forced decode against forward
+# (c) deepseek at full width with 2 layers, bf16, remat policy "outs"
+LM_MOE_TRAIN = {"arch": "deepseek_moe_16b", "layers": 2, "batch": 8, "seq": 64,
+                "steps": 3, "lr": 1.5e-3}
 
 
 def _dispatched_ops(fn) -> int:
@@ -2627,27 +2675,315 @@ def _lm_train(full, tmp):
             "peak_memory_gb": peak}
 
 
+def _lm_family_cross(arch):
+    """(a) for one family: two layers in float32, TF32 off, on the card and
+    on the CPU from the same weights; for moe the routing agreement."""
+    import dataclasses
+    import torch_lm_check as LC
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(registry.get_config(arch), dtype="float32",
+                              **LM_FAMILY_CHECKS[arch])
+    t0 = time.perf_counter()
+    got = LC.card_vs_cpu(cfg, DEVICE, seed=SEED, batch=2, seq=16, decode_steps=16,
+                         train_steps=1)
+    got["seconds"] = time.perf_counter() - t0
+    got["config"] = {**LM_FAMILY_CHECKS[arch], "d_model": cfg.d_model,
+                     "dtype": cfg.dtype, "frames": cfg.frontend_tokens if cfg.frontend else None,
+                     "tolerance": {"logits_abs": LC.LOGIT_ATOL,
+                                   "metric_rel": LC.METRIC_RTOL}}
+    return got
+
+
+def _cache_bytes(cache) -> tuple[int, int]:
+    """(the KV caches' bytes, the recurrent states' bytes) of a cache tree."""
+    kv = rec = 0
+    stack = [("", cache)]
+    while stack:
+        key, node = stack.pop()
+        if isinstance(node, dict):
+            stack += list(node.items())
+        elif isinstance(node, (list, tuple)):
+            stack += [(key, x) for x in node]
+        elif key in ("k", "v", "slot_pos", "xk", "xv"):
+            kv += node.numel() * node.element_size()
+        else:
+            rec += node.numel() * node.element_size()
+    return kv, rec
+
+
+def _step_weight_bytes(params) -> int:
+    """The weights one decode step reads: every parameter but the embedding
+    table (it reads a row a token) and, for audio, the encoder."""
+    return sum(p.numel() * p.element_size() for n, p in params.named_parameters()
+               if not n.startswith(("embed.", "enc_layers.", "enc_norm.")))
+
+
+def _timed_steps(step, n_warm: int = LM_WARM, n_timed: int = LM_TIMED):
+    """Host ms of ``step(i)`` for i in range(n_warm + n_timed), each ending in
+    a sync: (the median of the last ``n_timed``, all of them)."""
+    import torch
+    times = []
+    for i in range(n_warm + n_timed):
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[n_warm:]), times
+
+
+def _device_ms_and_ops(step, host_ms):
+    """One decode step's device ms by CUDA-graph replays (``gpu_ms``), the
+    idle share beside the host ms, and the aten ops it dispatches."""
+    device_ms = gpu_ms(step, reps=3, rounds=3)
+    return {"decode_step_device_ms": device_ms,
+            "decode_idle_share": 1 - device_ms / host_ms,
+            "decode_step_aten_ops": _dispatched_ops(step)}
+
+
+def _lm_family_serve(arch, layers):
+    """(b) one decoder-only family in bf16 at full width (``layers`` of its
+    layers, else all) through ServeEngine; the decode step's time beside
+    its bytes bound; the teacher-forced decode against ``forward``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import registry, transformer as T
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import Request
+    full = registry.get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+    s = LM_FAMILY_SERVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(DEVICE).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_params = sum(p.numel() for p in params.parameters())
+    eng = ServeEngine(cfg, params, batch_slots=s["slots"], max_seq=s["max_seq"], eos_id=-1)
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=s["prompt"]),
+                    max_new_tokens=s["new"]) for i in range(s["requests"])]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    steps = 0
+    while any(not r.done for r in reqs) and steps < 10_000:
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    tokens = sum(len(r.generated) for r in reqs)
+    served_ok = all(r.done and len(r.generated) == s["new"]
+                    and all(0 <= t < cfg.padded_vocab for t in r.generated)
+                    for r in reqs)
+    del eng
+    finite = True
+    with torch.no_grad():
+        cache = T.init_cache(cfg, s["slots"], s["max_seq"], device=DEVICE)
+        kv_bytes, state_bytes = _cache_bytes(cache)
+        tok = torch.from_numpy(rng.integers(1, cfg.vocab, (s["slots"], 1))).to(DEVICE)
+        logits = []
+        step_ms, all_ms = _timed_steps(
+            lambda i: logits.append(T.decode_step(params, cfg, tok, cache, i)[0]))
+        finite &= all(bool(torch.isfinite(lg).all()) for lg in logits)
+        device = _device_ms_and_ops(
+            lambda: T.decode_step(params, cfg, tok, cache, LM_WARM + LM_TIMED), step_ms)
+        del cache, logits
+        # teacher-forced decode of one sequence against forward's argmaxes
+        n = LM_AGREE_POSITIONS
+        seq = torch.from_numpy(rng.integers(1, cfg.vocab, (1, n))).to(DEVICE)
+        fwd = T.forward(params, cfg, seq)[0][0]
+        cache = T.init_cache(cfg, 1, n, device=DEVICE)
+        dec = torch.stack([T.decode_step(params, cfg, seq[:, t:t + 1], cache, t)[0][0, 0]
+                           for t in range(n)])
+        finite &= bool(torch.isfinite(fwd).all() and torch.isfinite(dec).all())
+        agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+        del cache
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    read = _step_weight_bytes(params) + kv_bytes + 2 * state_bytes
+    del params
+    torch.cuda.empty_cache()
+    out = {"family": cfg.family, "n_layers": cfg.n_layers, "dtype": cfg.dtype, **s,
+           "params": n_params, "weights_gb": weight_bytes / 1e9, "init_s": init_s,
+           "engine_steps": steps, "serve_s": serve_s, "tokens": tokens,
+           "tokens_per_s": tokens / serve_s, "decode_step_ms": step_ms,
+           "decode_step_ms_all": all_ms, **device,
+           "decode_tokens_per_s": s["slots"] / step_ms * 1e3,
+           "kv_cache_gb": kv_bytes / 1e9, "recurrent_state_gb": state_bytes / 1e9,
+           "decode_bound_ms": read / HBM_BYTES_PER_S * 1e3,
+           "argmax_agree_share": agree, "argmax_positions": n,
+           "logits_finite": finite, "served_ok": served_ok, "peak_memory_gb": peak}
+    if layers:
+        out["depth_cut"] = (f"{layers} of {full.n_layers} layers: all {full.n_layers} "
+                            "take ≈ 93 GB in bf16, more than the card's 80 GB")
+    return out
+
+
+def _lm_audio_serve():
+    """(b) seamless-m4t-medium in bf16 at full width: ``init_cache`` →
+    ``start_decode`` over stub frames → greedy ``decode_step``s, each timed."""
+    import numpy as np
+    import torch
+    from repro_torch.models import encdec as E, registry
+    a = LM_AUDIO
+    cfg = registry.get_config(a["arch"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = E.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    n_params = sum(p.numel() for p in params.parameters())
+    frames = torch.randn((a["batch"], a["frames"], cfg.d_model), generator=gen,
+                         device=DEVICE).to(torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab, (a["batch"], 1))).to(DEVICE)
+    with torch.no_grad():
+        cache = E.init_cache(cfg, a["batch"], a["seq"], DEVICE, enc_len=a["frames"])
+        kv_bytes, _ = _cache_bytes(cache)
+        t0 = time.perf_counter()
+        cache = E.start_decode(params, cfg, frames, cache)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        out, logits = [], []
+
+        def greedy(t):
+            nonlocal tok
+            lg, _ = E.decode_step(params, cfg, tok, cache, t)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            logits.append(lg)
+            out.append(tok)
+        step_ms, all_ms = _timed_steps(greedy, LM_WARM, a["new"] - LM_WARM)
+        finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+        generated = torch.cat(out, dim=1).cpu()
+        device = _device_ms_and_ops(
+            lambda: E.decode_step(params, cfg, out[-1], cache, a["new"]), step_ms)
+        del cache, logits
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    read = _step_weight_bytes(params) + kv_bytes
+    del params, frames
+    torch.cuda.empty_cache()
+    ok = (tuple(generated.shape) == (a["batch"], a["new"])
+          and bool(((generated >= 0) & (generated < cfg.padded_vocab)).all()))
+    return {"family": cfg.family, "n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+            "dtype": cfg.dtype, **a, "params": n_params, "weights_gb": weight_bytes / 1e9,
+            "init_s": init_s, "encode_s": encode_s, "decode_step_ms": step_ms,
+            "decode_step_ms_all": all_ms, **device, "kv_cache_gb": kv_bytes / 1e9,
+            "decode_bound_ms": read / HBM_BYTES_PER_S * 1e3,
+            "tokens": generated.tolist(), "logits_finite": finite, "served_ok": ok,
+            "peak_memory_gb": peak}
+
+
+def _lm_moe_train(tmp):
+    """(c) deepseek-moe-16b at full width with 2 layers in bf16, remat
+    policy ``outs``, trained by ``examples/torch/lm_train_demo.py``'s
+    driver; its bound: 6 FLOPs per weight and row, every expert's weights
+    over its ``cap`` dispatch slots, the other weights (but the embedding
+    table) over every token."""
+    import dataclasses
+    import shutil
+    import torch
+    import torch_examples as TE
+    from repro_torch.models import registry
+    demo = TE.load("lm")
+    t = LM_MOE_TRAIN
+    cfg = dataclasses.replace(registry.get_config(t["arch"]), n_layers=t["layers"],
+                              remat=True, remat_policy="outs")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    drv = demo.build_driver(cfg, DEVICE, checkpoint_dir=tmp, steps=t["steps"],
+                            batch=t["batch"], seq=t["seq"], base_lr=t["lr"],
+                            checkpoint_every=10_000, keep=1, seed=SEED,
+                            meter_hook=lambda st, m, dt: steps.append((st, dt, m)))
+    state_bytes = sum(x.numel() * x.element_size() for x in _tensor_leaves(drv.state))
+    free = shutil.disk_usage(tmp).free
+    if free < 2 * state_bytes:
+        raise AssertionError(f"lm: {free / 1e9:.1f} GB free in {tmp}, the run needs "
+                             f"2 × {state_bytes / 1e9:.1f} GB for its checkpoint")
+    save = drv.ckpt.save
+    saves = []
+
+    def timed_save(step, tree, blocking=True):
+        t0 = time.perf_counter()
+        save(step, tree, blocking=blocking)
+        saves.append(time.perf_counter() - t0)
+    drv.ckpt.save = timed_save
+    drv.run()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    named = dict(drv.state[0].named_parameters())
+    experts = sum(p.numel() for n, p in named.items() if ".moe.w" in n)
+    dense = sum(p.numel() for n, p in named.items()
+                if ".moe.w" not in n and n != "embed.table")
+    tokens = t["batch"] * t["seq"]
+    cap = max(int(cfg.capacity_factor * tokens * cfg.moe_top_k / cfg.moe_experts), 1)
+    flops = 6 * (dense * tokens + experts * cap)
+    ms = [1e3 * dt for _, dt, _ in steps]
+    del drv
+    torch.cuda.empty_cache()
+    return {"arch": t["arch"], "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "remat_policy": cfg.remat_policy, **t,
+            "params": sum(p.numel() for p in named.values()), "state_gb": state_bytes / 1e9,
+            "losses": [m["loss"] for _, _, m in steps], "step_ms": ms,
+            "step_ms_median": statistics.median(ms[1:]),
+            "step_bound_ms": flops / BF16_FLOPS_PER_S * 1e3, "capacity": cap,
+            "save_s": saves, "peak_memory_gb": peak}
+
+
 def phase_lm():
-    """The LM decoder of ``repro_torch.models`` (ROADMAP A.13, the dense
-    family) at qwen3-4b's widths: (a) card against CPU, (b) serving at full
-    depth, (c) training at two layers with checkpoint and resume.  The
-    launch counts are reset just before (b) and read just after (c): the LM
-    launches none of the FHE kernels.  Returns those per-kernel counts."""
+    """The LMs of ``repro_torch.models`` (ROADMAP A.13, A.13b): qwen3-4b's
+    (a) card against CPU, (b) serving at full depth, (c) training at two
+    layers with checkpoint and resume; then the moe, hybrid, ssm and audio
+    families' (a) card against CPU at two layers, (b) serving at full width
+    (mixtral at 16 of its 32 layers), (c) deepseek-moe-16b training at two
+    layers.  The launch counts are reset just before the (b)s and read just
+    after the (c)s: the LMs launch none of the FHE kernels.  Returns those
+    per-kernel counts."""
     from repro_torch.kernels import config
     from repro_torch.models import registry
     t0 = time.perf_counter()
     full = registry.get_config(LM_ARCH)
     cross = _lm_cross(full)
+    t1 = time.perf_counter()
+    family_cross = {arch: _lm_family_cross(arch) for arch in LM_FAMILY_CHECKS}
+    families_s = time.perf_counter() - t1
     config.reset_launches()
     serve = _lm_serve(full)
+    t1 = time.perf_counter()
+    family_serve = {arch: _lm_family_serve(arch, layers)
+                    for arch, layers in LM_FAMILY_SERVED.items()}
+    family_serve[LM_AUDIO["arch"]] = _lm_audio_serve()
+    families_s += time.perf_counter() - t1
     with tempfile.TemporaryDirectory() as tmp:
         train = _lm_train(full, tmp)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        moe_train = _lm_moe_train(tmp)
+    families_s += time.perf_counter() - t1
     launches = config.kernel_launch_counts()
     emit({"phase": "lm", "arch": LM_ARCH, "cross": cross, "serve": serve,
           "train": train, "fhe_kernel_launches": launches,
           "seconds": time.perf_counter() - t0})
+    emit({"phase": "lm_families", "cross": family_cross, "serve": family_serve,
+          "train": moe_train, "seconds": families_s})
     if not all(cross["ok"].values()):
         raise AssertionError(f"lm: card and CPU differ: {cross['ok']}")
+    for arch, got in family_cross.items():
+        if not all(got["ok"].values()):
+            raise AssertionError(f"lm: {arch}: card and CPU differ: {got['ok']}")
+    for arch, got in family_serve.items():
+        if not (got["served_ok"] and got["logits_finite"]):
+            raise AssertionError(f"lm: {arch}: serving did not finish every request "
+                                 "with tokens in the vocabulary, or a logit was not "
+                                 "finite")
+    if not (len(moe_train["losses"]) == LM_MOE_TRAIN["steps"]
+            and all(math.isfinite(x) for x in moe_train["losses"])):
+        raise AssertionError(f"lm: {LM_MOE_TRAIN['arch']}: a loss was not finite: "
+                             f"{moe_train['losses']}")
     if not (serve["served_ok"] and serve["logits_finite"]):
         raise AssertionError("lm: serving did not finish every request with "
                              f"{LM_SERVE['new']} tokens in the vocabulary, or a "

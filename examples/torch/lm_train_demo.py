@@ -9,8 +9,9 @@ quarantine wired in).
 (default qwen3_4b), ``TokenPipeline`` batches of 8 × 32 tokens, 30 AdamW
 steps (lr 3e-3, 5 warmup steps), a checkpoint every 10 steps into a
 temporary directory; the last loss must be below the first.  The entry,
-:func:`build_driver`, takes any dense or vlm ``ModelConfig``, so a
-full-width one trains through the same code.  On ``--device cuda`` without
+:func:`build_driver`, takes the ``ModelConfig`` of any family (audio with
+zero frames as its source, as the reference's demo), so a full-width one
+trains through the same code.  On ``--device cuda`` without
 a GPU it fails.
 """
 from __future__ import annotations

@@ -12,8 +12,8 @@ u32 residues, so both sides compute on the same bytes:
 * :func:`bootcontext_from_numpy` builds a bootstrapping context from its key
   set and its EvalMod and BSGS settings, the transform diagonals rebuilt from
   this package's own canonical embedding;
-* :func:`lm_params_from_numpy` builds the LM decoder from the reference's
-  parameter tree.
+* :func:`lm_params_from_numpy` builds an LM of any family from the
+  reference's parameter tree.
 """
 from __future__ import annotations
 
@@ -83,21 +83,32 @@ def bootcontext_from_numpy(params: CkksParams, s_small: np.ndarray,
         use_min_ks=bool(use_min_ks))
 
 
+#: the reference's parameter leaves stacked over the layers on a leading axis
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
-    """A :class:`~repro_torch.models.transformer.Transformer` holding the
-    reference's LM parameter tree given as numpy arrays: nested dicts with
-    the layers stacked on a leading axis (``tree["layers"]["attn"]["wq"][i]``
-    is layer i's ``layers.i.attn.wq``).  Every leaf of the tree must be
-    used, each in the port's dtype for ``cfg``."""
+    """The LM of ``cfg``'s family (a :class:`~repro_torch.models.transformer.
+    Transformer`, or an :class:`~repro_torch.models.encdec.EncDec` for audio)
+    holding the reference's parameter tree given as numpy arrays: nested
+    dicts, the ``layers`` / ``enc_layers`` / ``dec_layers`` stacked on a
+    leading axis (``tree["layers"]["attn"]["wq"][i]`` is ``layers.i.attn.wq``)
+    and lists indexed in the path (``tree["first_layers"][0]`` holds
+    ``first_layers.0.…``).  Every leaf of the tree must be used, and each
+    must have the port's dtype for its parameter: float32 or bfloat16, as
+    the reference keeps it."""
     import torch
 
-    from .models import transformer as T
-    model = T.Transformer(cfg, device)
+    from .models import encdec, transformer
+    model = (encdec.EncDec if cfg.family == "audio" else transformer.Transformer)(cfg, device)
 
     def leaves(node, path=()):
         if isinstance(node, dict):
             for k, v in node.items():
                 yield from leaves(v, path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                yield from leaves(v, path + (str(i),))
         else:
             yield path, node
 
@@ -106,13 +117,17 @@ def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
     with torch.no_grad():
         for name, w in model.named_parameters():
             parts = name.split(".")
-            if parts[0] == "layers":
-                path, index = ("layers", *parts[2:]), (int(parts[1]),)
+            if parts[0] in STACKED:
+                path, index = (parts[0], *parts[2:]), (int(parts[1]),)
             else:
                 path, index = tuple(parts), ()
             if path not in given:
                 raise KeyError(f"{name}: no {'/'.join(path)} in the tree")
-            a = np.array(np.asarray(given[path])[index], dtype=np.float32)
+            a = np.asarray(given[path])
+            want = str(w.dtype).removeprefix("torch.")
+            if a.dtype.name != want:
+                raise TypeError(f"{name}: dtype {a.dtype.name}, the port's is {want}")
+            a = np.array(a[index], dtype=np.float32)
             if tuple(a.shape) != tuple(w.shape):
                 raise ValueError(f"{name}: shape {a.shape}, expected {tuple(w.shape)}")
             w.copy_(torch.from_numpy(a))

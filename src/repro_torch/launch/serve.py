@@ -7,7 +7,8 @@ LM decode engine, on the card.
     # the same on the CPU (the kernels' plain versions)
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
-    # LM decode: a reduced architecture through ServeEngine
+    # LM decode: a reduced architecture through ServeEngine (any family but
+    # audio, which the engine refuses, as the reference's)
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch qwen3_4b
 
 The flags and defaults are the reference launcher's (``repro.launch.serve``)
@@ -116,6 +117,8 @@ def main_lm(args):
 
     require_device(args.device)
     cfg = registry.get_config(args.arch).reduced()
+    if cfg.family == "audio":
+        raise ValueError("audio serving demo: examples/ has one")
     mod = registry.get_module(cfg)
     params = mod.init_params(torch.Generator(args.device).manual_seed(0), cfg)
     eng = ServeEngine(cfg, params, batch_slots=args.slots,

@@ -43,8 +43,8 @@ class ModelConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     remat: bool = True
-    remat_policy: str = "full"   # full = nothing saved (the port's only policy;
-                                 # "dots"/"outs" raise NotImplementedError)
+    remat_policy: str = "full"   # full = nothing saved; dots = matmul results saved;
+                                 # outs = attention and MLP outputs saved
     unroll: bool = False    # the reference's Python-loop layers instead of
                             # lax.scan; accepted, the port always loops
     # serving

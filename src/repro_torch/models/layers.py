@@ -7,7 +7,9 @@ containers (:class:`RMSNorm`, :class:`Attention`, :class:`MLP`,
 dict keys, and every function takes (module, config, inputs) where the
 reference takes (params dict, config, inputs).  The dtype rules are the
 reference's: weights and activations in bf16 when ``cfg.dtype ==
-"bfloat16"``, norm scales and the norm itself in fp32, attention logits cast
+"bfloat16"`` (each leaf the reference keeps in fp32 is fp32 here too: a
+container passes ``dtype`` to :func:`_weight`), norm scales and the norm
+itself in fp32, attention logits cast
 to fp32 before the softmax, masked logits set to -1e30.  Attention is plain
 tensor algebra (``einsum`` and ``softmax``), as the reference's is plain
 ``jnp``.
@@ -24,7 +26,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from .config import ModelConfig
 
@@ -36,8 +40,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _weight(shape, cfg: ModelConfig, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=_dtype(cfg), device=device))
+def _weight(shape, cfg: ModelConfig, device, dtype=None) -> nn.Parameter:
+    """An uninitialised weight in ``dtype``, by default the model's."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype or _dtype(cfg), device=device))
 
 
 def init_(w: torch.Tensor, generator: torch.Generator, scale: float | None = None):
@@ -48,6 +53,24 @@ def init_(w: torch.Tensor, generator: torch.Generator, scale: float | None = Non
     with torch.no_grad():
         w.copy_(torch.randn(w.shape, generator=generator, dtype=torch.float32,
                             device=w.device) * scale)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator):
+    """The reference's initialiser law over every leaf of ``model``: norm
+    scales 1, the embedding table N(0, 1), the scales a container names in
+    its ``INIT_SCALE``, N(0, 1/fan_in) for every other weight, and then the
+    constants a container sets in its ``init_fixed``."""
+    for mod in model.modules():
+        if isinstance(mod, RMSNorm):
+            with torch.no_grad():
+                mod.scale.fill_(1.0)
+            continue
+        scales = getattr(mod, "INIT_SCALE", {})
+        for name, w in mod.named_parameters(recurse=False):
+            init_(w, generator, scale=1.0 if isinstance(mod, Embedding)
+                  else scales.get(name))
+        if hasattr(mod, "init_fixed"):
+            mod.init_fixed()
 
 
 # ----------------------------------------------------------------------------
@@ -275,24 +298,63 @@ def lm_head(p: Head, x):
     return x @ p.w
 
 
+# ----------------------------------------------------------------------------
+# Activation checkpointing
+# ----------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _named(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` under a checkpoint name: an op the ``"outs"`` policy can see."""
+    return x.clone()
+
+
+@_named.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_named.register_autograd(lambda ctx, grad: (grad, None))
+
+
+def checkpoint_name(x, cfg: ModelConfig, name: str):
+    """``x`` itself, or, while gradients are recorded in a model checkpointed
+    with policy ``"outs"``, a copy of it that the policy saves (the
+    reference's ``jax.ad_checkpoint.checkpoint_name``; the port names
+    ``attn_out`` and ``mlp_out`` only, the two values ``"outs"`` keeps)."""
+    if cfg.remat and cfg.remat_policy == "outs" and torch.is_grad_enabled():
+        return torch.ops.repro_torch.checkpoint_name(x, name)
+    return x
+
+
+#: the ops whose outputs each policy saves (``"full"``: none)
+_SAVED = {"full": (), "dots": ("aten.mm.default", "aten.addmm.default"),
+          "outs": ("repro_torch.checkpoint_name.default",)}
+
+
 def remat_wrap(fn, cfg: ModelConfig):
-    """Activation checkpointing of one layer while gradients are recorded:
-    with ``cfg.remat`` and policy ``"full"`` nothing inside the layer is saved
-    and the backward pass recomputes it.  The reference's ``"dots"`` and
-    ``"outs"`` policies (save the projections, or the attention and MLP
-    outputs) are not ported (ROADMAP A.13b)."""
+    """Activation checkpointing of one layer while gradients are recorded,
+    with the reference's policies: ``"full"`` saves nothing inside the layer
+    and the backward pass recomputes it; ``"dots"`` saves the outputs of the
+    matrix products with no batch dimension (``aten.mm`` and ``aten.addmm``,
+    as ``dots_with_no_batch_dims_saveable``); ``"outs"`` saves the values
+    named by :func:`checkpoint_name`."""
     if not cfg.remat:
         return fn
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat policy {cfg.remat_policy!r} is not ported (ROADMAP A.13b); "
-            "the port has 'full'")
+    if cfg.remat_policy not in _SAVED:
+        raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+    saved = _SAVED[cfg.remat_policy]
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if str(op) in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, policy)
+                  if saved else noop_context_fn)
 
     @functools.wraps(fn)
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
     return wrapped
 
 

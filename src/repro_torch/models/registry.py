@@ -1,16 +1,15 @@
 """--arch registry: maps arch ids to (ModelConfig, model module).
 
 The port of ``repro.models.registry``.  The full-scale configs live in
-``repro_torch.configs.<arch>``; :func:`get_module` wires the dense and vlm
-families to :mod:`repro_torch.models.transformer` and raises
-``NotImplementedError`` for the families the port does not run yet
-(ROADMAP A.13b).
+``repro_torch.configs.<arch>``; :func:`get_module` wires the audio family
+to :mod:`repro_torch.models.encdec` and every other family to
+:mod:`repro_torch.models.transformer`.
 """
 from __future__ import annotations
 
 import importlib
 
-from . import transformer
+from . import encdec, transformer
 from .config import SHAPES, ModelConfig
 
 ARCHS = [
@@ -36,8 +35,7 @@ def get_config(arch: str) -> ModelConfig:
 
 
 def get_module(cfg: ModelConfig):
-    transformer.check_family(cfg)
-    return transformer
+    return encdec if cfg.family == "audio" else transformer
 
 
 def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:

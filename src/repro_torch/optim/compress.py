@@ -6,21 +6,29 @@ fp32, and the residual carried to the next step (error feedback) keeps
 convergence.  The quantize/dequantize pair wraps the data-parallel
 reduction; the residual state lives beside the optimizer state.
 
-A "tensor" is a leaf of the reference's parameter tree, where each weight is
-stacked over the layers: ``layers.0.attn.wq`` … ``layers.<L-1>.attn.wq``
-share one scale (see :func:`stacked_name`).
+A "tensor" is a leaf of the reference's parameter tree, where each weight of
+a layer stack is stacked over its layers: ``layers.0.attn.wq`` …
+``layers.<L-1>.attn.wq`` share one scale, and so do the encoder's and the
+decoder's layers (see :func:`stacked_name`).
 """
 from __future__ import annotations
 
 import torch
 
 
+#: the reference's layer stacks (one leaf per weight, stacked over the layers)
+STACKS = ("layers", "enc_layers", "dec_layers")
+
+
 def stacked_name(name: str) -> str:
     """The reference's tree leaf that a parameter belongs to:
-    ``layers.<i>.<rest>`` → ``layers.<rest>``; any other name is its own."""
+    ``<stack>.<i>.<rest>`` → ``<stack>.<rest>`` for the stacks ``layers``,
+    ``enc_layers`` and ``dec_layers``; any other name is its own (each
+    ``first_layers.<j>`` block and ``shared_attn`` are their own leaves, as
+    the reference's list and dict are)."""
     parts = name.split(".")
-    if len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit():
-        return ".".join(["layers", *parts[2:]])
+    if len(parts) > 2 and parts[0] in STACKS and parts[1].isdigit():
+        return ".".join([parts[0], *parts[2:]])
     return name
 
 

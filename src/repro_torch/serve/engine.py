@@ -1,5 +1,5 @@
-"""LM decode engine: continuous-batching-lite over the KV caches (the port
-of ``repro.serve.engine``).
+"""LM decode engine: continuous-batching-lite over the family caches (the
+port of ``repro.serve.engine``): dense, vlm, moe, hybrid and ssm.
 
 Requests join a fixed-size slot table; each engine step decodes one token for
 every active slot (one ``decode_step`` over the whole batch).  Finished or
@@ -35,7 +35,9 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: T.Transformer, batch_slots: int,
                  max_seq: int, eos_id: int = 0):
-        T.check_family(cfg)
+        if cfg.family == "audio":
+            raise ValueError("the LM decode engine serves the decoder-only families; "
+                             "audio decodes through models.encdec, as in the reference")
         self.cfg = cfg
         self.params = params
         self.device = params.embed.table.device

@@ -37,7 +37,10 @@ def make_train_step(loss_fn: Callable, tcfg: TrainStepConfig):
     def grads_of(params, batch):
         named = optim.named_tensors(params)
         loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, list(named.values()))
+        # a parameter the loss does not reach (an xLSTM layer's idle block)
+        # has a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), dict(zip(named, grads))
 
     def accumulate(params, batch):

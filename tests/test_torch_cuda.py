@@ -1014,16 +1014,18 @@ def test_mesh_parts_on_card(dev, where, monkeypatch):
         a.to_coeff()                                       # outside the scope
 
 
-def test_lm_reduced_on_card_equals_cpu(dev):
-    """The LM decoder (reduced qwen3-4b, float32, TF32 off) on the card and
-    on the CPU from the same weights: forward logits and a 16-token
-    teacher-forced decode within 1e-3, one train step's loss and grad norm
-    within 1e-4 relative, the parameters after it within 2·lr.  The decoder
-    launches none of the FHE kernels."""
+@pytest.mark.parametrize("arch", ["qwen3_4b", "deepseek_moe_16b", "zamba2_7b",
+                                  "xlstm_1_3b", "seamless_m4t_medium"])
+def test_lm_reduced_on_card_equals_cpu(dev, arch):
+    """The LM of one arch per family (dense, moe, hybrid, ssm, audio;
+    reduced, float32, TF32 off) on the card and on the CPU from the same
+    weights: forward logits and a 16-token teacher-forced decode within
+    1e-3, one train step's loss and grad norm within 1e-4 relative, the
+    parameters after it within 2·lr.  The model launches none of the FHE
+    kernels."""
     import torch_lm_check as LC
     from repro_torch.models import registry
     config.reset_launches()
-    got = LC.card_vs_cpu(registry.get_config("qwen3_4b").reduced(), dev,
-                         train_steps=1)
+    got = LC.card_vs_cpu(registry.get_config(arch).reduced(), dev, train_steps=1)
     assert all(got["ok"].values()), got
     assert config.kernel_launch_counts() == {}

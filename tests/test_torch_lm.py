@@ -24,7 +24,7 @@ import torch
 
 from repro_torch import interop, optim
 from repro_torch.data import TokenPipeline
-from repro_torch.models import layers as L, registry, transformer as T
+from repro_torch.models import encdec, layers as L, registry, transformer as T
 from repro_torch.serve import ServeEngine
 from repro_torch.serve.engine import Request
 from repro_torch.train import TrainStepConfig, make_train_step
@@ -70,7 +70,7 @@ def test_models_equal_jax():
     ring buffer wraps); the chunked online-softmax path
     (``set_chunked_threshold(8)``).  Also: the ten configs equal the JAX
     package's, full and reduced, and activation checkpointing gives the
-    same gradients."""
+    same gradients under each policy (full, dots, outs)."""
     jax, JL, JR, JT = _jax()
     import jax.numpy as jnp
     bad = {}
@@ -142,25 +142,21 @@ def test_models_equal_jax():
         if cfg.sliding_window and cache["k"].shape[2] != cfg.sliding_window:
             bad[f"{name}/ring"] = f"cache length {cache['k'].shape[2]}"
 
-    # remat ("full") recomputes and gives the same gradients; the
-    # reference's other policies are not ported
+    # remat recomputes and gives the same gradients, under each of the
+    # reference's policies
     _, model = _port_model(jax, JT, qwen)
     batch = {"tokens": torch.from_numpy(tokens[:, :8]),
              "labels": torch.from_numpy(labels[:, :8].clip(0))}
     grads = {}
-    for remat in (False, True):
-        c = dataclasses.replace(qwen, remat=remat)
+    for policy in (None, "full", "dots", "outs"):
+        c = dataclasses.replace(qwen, remat=policy is not None,
+                                remat_policy=policy or "full")
         loss = T.loss_fn(model, c, batch)
-        grads[remat] = torch.autograd.grad(loss, list(model.parameters()))
-    if not all(torch.allclose(a, b, rtol=0, atol=1e-6) for a, b in zip(*grads.values())):
-        bad["remat/grads"] = "differ"
-    for policy in ("dots", "outs"):
-        try:
-            T.forward(model, dataclasses.replace(qwen, remat=True, remat_policy=policy),
-                      batch["tokens"])
-            bad[f"remat/{policy}"] = "did not raise"
-        except NotImplementedError:
-            pass
+        grads[policy] = torch.autograd.grad(loss, list(model.parameters()))
+    for policy in ("full", "dots", "outs"):
+        if not all(torch.allclose(a, b, rtol=0, atol=1e-6)
+                   for a, b in zip(grads[policy], grads[None])):
+            bad[f"remat/{policy}/grads"] = "differ"
     assert not bad, bad
 
 
@@ -261,8 +257,9 @@ def test_train_steps_equal_jax():
 def test_serve_engine_equals_jax():
     """``ServeEngine`` with 2 slots and 3 requests (one waits for a refill;
     the prefill writes token 0 into the other slot's cache, as the
-    reference's): the JAX engine's tokens.  The registry and the model
-    refuse every family the port does not run."""
+    reference's): the JAX engine's tokens.  The registry gives every arch
+    the module the JAX registry gives it, and each family's model and
+    caches build."""
     jax, JL, JR, JT = _jax()
     from repro.serve import ServeEngine as JEngine
     from repro.serve.engine import Request as JRequest
@@ -288,17 +285,13 @@ def test_serve_engine_equals_jax():
 
     for arch in registry.ARCHS:
         cfg = registry.get_config(arch).reduced()
-        if cfg.family in T.FAMILIES:
-            if registry.get_module(cfg) is not T:
-                bad[f"{arch}/module"] = "not the port's transformer"
-            continue
-        for what, fn in (("get_module", lambda: registry.get_module(cfg)),
-                         ("Transformer", lambda: T.Transformer(cfg, CPU)),
-                         ("init_cache", lambda: T.init_cache(cfg, 1, 4, CPU))):
-            try:
-                fn()
-                bad[f"{arch}/{what}"] = "did not raise"
-            except NotImplementedError as e:
-                if "A.13b" not in str(e):
-                    bad[f"{arch}/{what}"] = str(e)
+        jmod = JR.get_module(JR.get_config(arch).reduced())
+        mod = registry.get_module(cfg)
+        if mod.__name__.rsplit(".", 1)[-1] != jmod.__name__.rsplit(".", 1)[-1]:
+            bad[f"{arch}/module"] = (mod.__name__, jmod.__name__)
+        try:
+            mod.init_cache(cfg, 1, 4, CPU)
+            (encdec.EncDec if cfg.family == "audio" else T.Transformer)(cfg, "meta")
+        except Exception as e:          # every family builds
+            bad[f"{arch}/build"] = f"{type(e).__name__}: {e}"
     assert not bad, bad

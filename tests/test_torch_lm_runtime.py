@@ -329,24 +329,27 @@ def test_driver_and_pipeline(tmp_path):
 
 
 def test_lm_command_lines_on_the_cpu(tmp_path, capsys, sigterm_kept):
-    """``launch.serve --mode lm``, ``launch.train`` and
+    """``launch.serve --mode lm`` (qwen3-4b and deepseek-moe-16b),
+    ``launch.train`` (qwen3-4b and zamba2-7b) and
     ``examples/torch/lm_train_demo.py``, each with ``--device cpu``."""
     pytest.importorskip("jax")
     from repro_torch.launch import serve, train
     bad = {}
-    serve.main(["--mode", "lm", "--device", "cpu", "--requests", "3",
-                "--slots", "2", "--max-new", "4"])
-    out = capsys.readouterr().out
-    if "served 3 requests, 12 tokens" not in out:
-        bad["serve"] = out[-400:]
-    ckpt = tmp_path / "train"
-    train.main(["--arch", "qwen3_4b", "--device", "cpu", "--steps", "4",
-                "--batch", "4", "--seq", "16", "--ckpt-dir", str(ckpt),
-                "--ckpt-every", "2"])
-    out = capsys.readouterr().out
-    if not ("finished at step 4" in out
-            and CheckpointManager(str(ckpt)).list_steps() == [1, 3]):
-        bad["train"] = out[-400:]
+    for arch in ("qwen3_4b", "deepseek_moe_16b"):
+        serve.main(["--mode", "lm", "--arch", arch, "--device", "cpu",
+                    "--requests", "3", "--slots", "2", "--max-new", "4"])
+        out = capsys.readouterr().out
+        if "served 3 requests, 12 tokens" not in out:
+            bad[f"serve/{arch}"] = out[-400:]
+    for arch in ("qwen3_4b", "zamba2_7b"):
+        ckpt = tmp_path / f"train_{arch}"
+        train.main(["--arch", arch, "--device", "cpu", "--steps", "4",
+                    "--batch", "4", "--seq", "16", "--ckpt-dir", str(ckpt),
+                    "--ckpt-every", "2"])
+        out = capsys.readouterr().out
+        if not ("finished at step 4" in out
+                and CheckpointManager(str(ckpt)).list_steps() == [1, 3]):
+            bad[f"train/{arch}"] = out[-400:]
     if TE.load("lm").main(["--device", "cpu"]) != 0 \
             or "LM train demo OK" not in capsys.readouterr().out:
         bad["demo"] = "failed"
