@@ -237,10 +237,30 @@ with ``nvcc`` and runs, each phase printing one JSON line:
               policy ``outs``, 3 steps of 8 × 64 tokens through the demo's
               driver: every loss finite, ms per step; no FHE kernel
               launched from the first (b) to the last (c);
-17. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
+17. dryrun  — the dry-run tools (``repro_torch.launch.dryrun_fhe``,
+              ``dryrun``): (a) the paper's key-switch (``paper_full``,
+              ℓ = 48) under ARK and under limb duplication on the pod mesh
+              16x16-BK-8x8 (4 limb clusters of 64 cores), then a batch of 2
+              on the multi-pod mesh (one pod per card where there are two,
+              else both on cuda:0), each executed on the card: bytes equal
+              to the plain single-device key-switch's, executed collectives
+              equal to ``predict_collectives`` and their bytes to
+              ``nop_traffic``'s BConv term, nothing across "pod", warm ms by
+              graph replay (host clock where a capture fails), launches per
+              kernel; every launch of one ARK and one limb-duplication cell
+              held against its plain version, and BConvU at those 64-core
+              shard shapes timed against its plain version; (b) the
+              dry-run's memory model on a 1 × 1 fake mesh for qwen3-4b's
+              served configuration (36 layers, bf16, 8 slots, 256
+              positions): predicted argument bytes equal to the bytes of the
+              parameters, cache and token really allocated on the card, and
+              the predicted temp bytes beside the measured peak growth of
+              one ``decode_step`` (reported); (c) one fake-rank cell
+              (xlstm-1.3b × decode_32k on the 16 × 16 pod): ok;
+18. autotune — ``python -m repro_torch.kernels.autotune --quick`` for the NTT
               (R × cluster size) and the single permutation at N = 2¹⁶,
               ℓ = 48, its cache in a temporary directory;
-18. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
+19. card tests — ``pytest -m cuda tests/test_torch_cuda.py`` in a subprocess
               (every kernel against its plain version at small shapes and at
               the bootstrap's N = 2¹⁴ shapes, the NTT at every cluster size of
               every split it is tested at; the tests that need two cards run
@@ -249,8 +269,8 @@ with ``nvcc`` and runs, each phase printing one JSON line:
 then the kernel table as one JSON line (launches: the pipeline's pass, one
 warm bootstrap, one warm served wave, the analytics phase's traced ops and
 wave, one distributed pass per map, one pass per map on four parts of the
-card, HELR's two iterations at the paper's ring and the LM phase's (none),
-and each path's share),
+card, HELR's two iterations at the paper's ring, the LM phase's (none) and
+the dry-run's key-switch cells, and each path's share),
 and the
 result line
 ``{"ok": true, "device": {...}}`` last.  Any failure raises: the script exits
@@ -3004,6 +3024,172 @@ def phase_lm():
     return launches
 
 
+# the dry-run phase: the FHE cells (policy, mesh) and the memory model's cell
+DRYRUN_FHE_CELLS = (("ark", "pod"), ("limbdup", "pod"), ("ark", "multipod"),
+                    ("limbdup", "multipod"))
+DRYRUN_LIMB_CLUSTERS = 4
+DRYRUN_KERNELS = ("efu", "bconvu", "ntt_fwd", "ntt_inv")
+
+
+def _dryrun_bconv_rows(params, gen):
+    """BConvU at the pod mesh's 64-core shard shapes (paper_full, 4 limb
+    clusters of 64 cores, n = N/64): ARK's table product on the
+    coefficient-scattered (4, 64, 1, 12, N/256) blocks (ModUp 12 → 48) and
+    limb duplication's grouped launch over the all-gathered (4, 64, 1, 12,
+    N/64) blocks (each cluster its 12 of the 48 primes), against their plain
+    versions."""
+    from repro_torch.kernels.bconv import ops as bconv_ops
+    N, q = params.N, params.q
+    src, dst = q[:12], q[12:48] + params.p
+    rows = []
+    lc = DRYRUN_LIMB_CLUSTERS
+    cs = 256 // lc
+    for name, lead, n, grouped in (
+            (f"bconv_ark_{lc}x{cs}x1x12_to_48", (lc, cs, 1), N // cs // lc, False),
+            (f"bconv_limbdup_{lc}x{cs}x1x12_to_{lc}x12", (lc, cs, 1), N // cs, True)):
+        xs = residues(src, lead, n, gen)
+        k = len(dst)
+        rows_in = math.prod(lead)
+        rows_out = rows_in * (k // lc if grouped else k)
+        fn = bconv_ops.bconv_grouped_cuda if grouped else bconv_ops.bconv_cuda
+        plain = bconv_ops.bconv_grouped_plain if grouped else bconv_ops.bconv_plain
+        kernel_case(rows, "bconvu", name, "bconv", "src/repro_torch/kernels/csrc/bconv.cu",
+                    "src/repro/kernels/bconv/kernel.py:59",
+                    lambda a, f=fn: f(a, src, dst), lambda a, f=plain: f(a, src, dst), [xs],
+                    nbytes=(rows_in * 12 * n + rows_out * n + k * 12) * 4 + 12 * 20 + k * 16,
+                    ops=2 * rows_out * 12 * n,
+                    info={"groups": lc if grouped else 1})
+    return rows
+
+
+def _dryrun_fhe(params):
+    """(a) the key-switch cells on the card; returns (records, per-kernel
+    launches of the cells' mapped runs, BConvU rows)."""
+    import torch
+    from repro_torch.launch import dryrun_fhe as F
+    from repro_torch.launch.mesh import make_fhe_mesh
+    from repro_torch.core import poly as pl
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 28)
+    pods = ([f"cuda:{i}" for i in range(2)] if torch.cuda.device_count() >= 2
+            else None)
+    records, total = [], collections.Counter()
+    for policy, mesh_kind in DRYRUN_FHE_CELLS:
+        devices = pods if mesh_kind == "multipod" else None
+        rec = F.run_cell(mesh_kind, policy, params.L, DRYRUN_LIMB_CLUSTERS,
+                         device=DEVICE, params=params, devices=devices)
+        if not rec.get("ok"):
+            raise AssertionError(f"dryrun_fhe {policy} {mesh_kind}: {rec.get('error')}")
+        total.update(rec["launches"])
+        # warm device time by graph replay of the same cell (one card only)
+        if devices is None:
+            mesh = make_fhe_mesh(multi_pod=mesh_kind == "multipod",
+                                 limb_clusters=DRYRUN_LIMB_CLUSTERS, n_cores=F.N_CORES,
+                                 device=DEVICE)
+            d_np, a_np, b_np = F.ks_inputs(params, params.L, rec["batch"])
+            pods_n = rec["batch"]
+            d = [pl.to_tensor(d_np[i], DEVICE) for i in range(pods_n)]
+            a = [pl.to_tensor(a_np, DEVICE)] * pods_n
+            b = [pl.to_tensor(b_np, DEVICE)] * pods_n
+            fn = F.build_ks_fn(params, params.L, mesh, F.POLICIES[policy])
+            try:
+                rec["warm_ms_graph"] = gpu_ms(lambda: fn(d, a, b), reps=1, rounds=5)
+            except Exception as e:        # a capture the cell does not allow
+                torch.cuda.synchronize()
+                rec["warm_ms_graph"] = None
+                rec["graph_error"] = f"{type(e).__name__}: {e}"[:300]
+        records.append(rec)
+        emit({"phase": "dryrun_fhe", **rec})
+    # every launch of one cell per policy held against its plain version
+    checked = {}
+    for policy in ("ark", "limbdup"):
+        with kernels_checked() as results:
+            rec = F.run_cell("pod", policy, params.L, DRYRUN_LIMB_CLUSTERS,
+                             device=DEVICE, params=params, warm_reps=0)
+        checked[policy] = results
+        if not rec.get("ok") or not all(r["equal"] for r in results.values()):
+            raise AssertionError(f"dryrun_fhe {policy}: a launch differs from its "
+                                 f"plain version: {results}")
+        if not any(k.startswith("bconvu") for k in results):
+            raise AssertionError(f"dryrun_fhe {policy}: no BConvU launch checked")
+    rows = _dryrun_bconv_rows(params, gen)
+    return records, dict(total), rows, checked
+
+
+def _dryrun_memory():
+    """(b) the memory model: qwen3-4b served (36 layers, bf16, 8 slots) on a
+    1 × 1 fake mesh, against the same parameters and cache on the card."""
+    import torch
+    from repro_torch.launch import dryrun, specs as S
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    from repro_torch.models import registry, transformer as T
+    cfg = registry.get_config(LM_ARCH)
+    s = LM_SERVE
+    cell = S.Cell(arch=LM_ARCH, shape="served", kind="decode", seq_len=s["max_seq"],
+                  global_batch=s["slots"])
+    with fake_world(1):
+        pred, _ = dryrun.lower_cell(cfg, make_host_mesh(1), cell)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    params = T.Transformer(cfg, DEVICE)             # uninitialised: only bytes matter
+    with torch.no_grad():
+        for p in params.parameters():
+            p.zero_()
+    cache = T.init_cache(cfg, s["slots"], s["max_seq"], device=DEVICE)
+    tok = torch.ones((s["slots"], 1), dtype=torch.int32, device=DEVICE)
+    tensors = [*params.parameters(), *_tensor_leaves(cache), tok]
+    real = sum(t.untyped_storage().nbytes() for t in tensors)
+    allocated = torch.cuda.memory_allocated() - before
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        logits, cache = T.decode_step(params, cfg, tok, cache, s["max_seq"] - 1)
+    torch.cuda.synchronize()
+    out = {"cell": f"{LM_ARCH} decode, {s['slots']} slots, {s['max_seq']} positions, "
+                   f"{cfg.n_layers} layers, {cfg.dtype}, 1 x 1 fake mesh",
+           "predicted_argument_bytes": pred["memory"]["argument_bytes"],
+           "argument_bytes_on_card": real, "allocator_growth_bytes": allocated,
+           "predicted_temp_bytes": pred["memory"]["temp_bytes"],
+           "measured_decode_peak_growth_bytes": torch.cuda.max_memory_allocated() - base,
+           "predicted_flops": pred["flops"], "predicted_bytes_accessed": pred["bytes_accessed"],
+           "logits_finite": bool(torch.isfinite(logits).all())}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    if out["predicted_argument_bytes"] != real:
+        raise AssertionError(f"dryrun memory model: predicted argument bytes "
+                             f"{out['predicted_argument_bytes']} against {real} on the card")
+    return out
+
+
+def phase_dryrun(params):
+    """The dry-run tools on the card (module docstring, phase 17).  Returns
+    (per-kernel launches of the key-switch cells, BConvU kernel rows)."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    records, launches, rows, checked = _dryrun_fhe(params)
+    missing = [k for k in DRYRUN_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"dryrun: kernels {missing} never launched: {launches}")
+    t_fhe = time.perf_counter() - t0
+    memory = _dryrun_memory()
+    t_mem = time.perf_counter() - t0 - t_fhe
+    cell = dryrun.run_cell("xlstm_1_3b", "decode_32k", "pod", scale_metrics=False)
+    if not cell.get("ok") or not cell["flops"] > 0:
+        raise AssertionError(f"dryrun xlstm_1_3b decode_32k: {cell.get('error')}")
+    emit({"phase": "dryrun", "launches": launches,
+          "checked": {p: {k: v["calls"] for k, v in r.items()} for p, r in checked.items()},
+          "memory_model": memory,
+          "fake_cell": {k: cell[k] for k in ("arch", "shape", "mesh", "ok", "flops",
+                                             "bytes_accessed", "collectives",
+                                             "collective_counts", "memory",
+                                             "replicated_ops", "compile_s")},
+          "seconds": {"fhe": t_fhe, "memory": t_mem,
+                      "fake_cell": time.perf_counter() - t0 - t_fhe - t_mem,
+                      "total": time.perf_counter() - t0}})
+    return launches, rows
+
+
 def phase_autotune(params, cache_file):
     """A quick sweep of the NTT's and the single permutation's knobs through
     the autotuner's command-line entry point."""
@@ -3142,6 +3328,8 @@ def main() -> int:
         del pipeline
         helr_launches = phase_examples()
         lm_launches = phase_lm()
+        dryrun_launches, dryrun_rows = phase_dryrun(paper)
+        rows += dryrun_rows
         phase_autotune(paper, cache_file)
         autotune.set_cache_path(None)
     phase_card_tests()
@@ -3150,7 +3338,8 @@ def main() -> int:
                                 "analytics": analytics_launches,
                                 "distributed": dist_launches,
                                 "cards": cards_launches,
-                                "helr": helr_launches, "lm": lm_launches})
+                                "helr": helr_launches, "lm": lm_launches,
+                                "dryrun": dryrun_launches})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

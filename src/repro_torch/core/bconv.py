@@ -12,9 +12,15 @@ Engine selection, as the reference's ``core/bconv.py``:
   its plain version for CPU tensors, all leading dims in one launch.
 * ``"eager"`` — :func:`bconv_raw_eager`, the plain torch BConv on any device
   (the parity baseline).
+
+Under a :class:`mapping_scope` (either engine) every BConv runs on the
+scope's mesh under its policy (``distributed.mapped_bconv``), as the
+reference's sharding constraints lay it out at paper scale
+(``launch/dryrun_fhe.py``).
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 
 import numpy as np
@@ -61,6 +67,37 @@ class use_engine:
         return False
 
 
+# ----------------------------------------------------------------------------
+# Distribution policy hook (paper §IV/§V)
+# ----------------------------------------------------------------------------
+
+_active_policy: contextvars.ContextVar = contextvars.ContextVar("bconv_policy",
+                                                                default=None)
+
+
+class mapping_scope:
+    """Run every BConv on ``mesh`` (a one-part ``distributed.Mesh``, on the
+    operands' device) under ``policy`` (``distributed.ARK_POLICY`` or
+    ``LIMBDUP_POLICY``) inside the block."""
+
+    def __init__(self, mesh, policy):
+        self.value = (mesh, policy)
+
+    def __enter__(self):
+        self._tok = _active_policy.set(self.value)
+        return self
+
+    def __exit__(self, *exc):
+        _active_policy.reset(self._tok)
+        return False
+
+
+def policy_active() -> bool:
+    """True when a ``mapping_scope`` is active (the CKKS ops then take the
+    eager decomposition, whose BConvs the scope maps)."""
+    return _active_policy.get() is not None
+
+
 def _record(x, src, dst):
     count = int(np.prod(x.shape[:-2])) if x.dim() > 2 else 1
     trace.record("bconv_mul", len(src) * len(dst), x.shape[-1], count)
@@ -71,12 +108,17 @@ def _record(x, src, dst):
 def bconv_raw(x: torch.Tensor, src: tuple[int, ...],
               dst: tuple[int, ...]) -> torch.Tensor:
     """(…, ℓ, N) coeff-domain residues in ``src`` → (…, K, N) in ``dst``.
-    Under an active ``dist_scope`` the mesh-mapped BConv (either engine)."""
+    Under an active ``dist_scope`` the mesh-mapped BConv, under a
+    ``mapping_scope`` the policy's (either engine)."""
     from . import distributed as dist  # lazy: distributed imports this module
     ctx = dist.dist_active()
     if ctx is not None:
         _record(x, src, dst)
         return dist.sharded_bconv(ctx, x, tuple(src), tuple(dst))
+    scope = _active_policy.get()
+    if scope is not None:
+        _record(x, src, dst)
+        return dist.mapped_bconv(scope[0], scope[1], x, tuple(src), tuple(dst))
     if _engine == "eager":
         return bconv_raw_eager(x, src, dst)
     _record(x, src, dst)

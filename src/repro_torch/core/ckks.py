@@ -76,7 +76,7 @@ class use_engine:
 
 
 def _use_fused() -> bool:
-    if _engine != "fused":
+    if _engine != "fused" or bc.policy_active():
         return False
     # under an active dist_scope the eager decomposition is the distributed
     # path: every primitive it touches (RnsPoly NTT/automorphism, bconv_raw)

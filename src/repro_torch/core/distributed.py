@@ -54,8 +54,14 @@ lives in the four-step layouts (coefficient domain :func:`coef_layout_perm`,
 NTT domain :func:`ntt_layout_perm`); ciphertexts and keys cross the boundary
 through :func:`shard_ciphertext`/:func:`shard_keyset` and
 :func:`unshard_ciphertext`.  Results equal the single-device eager engine's
-bytes.  The port of ``repro.core.distributed`` without its XLA sharding
-policies and jax version shims.
+bytes.
+
+The reference's XLA mapping policies are :class:`MappingPolicy`
+(:data:`ARK_POLICY`, :data:`LIMBDUP_POLICY`) and :func:`mapped_bconv`:
+under ``bconv.mapping_scope(mesh, policy)`` every BConv of the global,
+single-device dataflow runs on the mesh's shards under the policy, the rest
+(NTT, EFU, the evk product) stays global on the device.  The port of
+``repro.core.distributed`` without its jax version shims.
 """
 from __future__ import annotations
 
@@ -709,6 +715,63 @@ def dist_bconv_ark(mesh: Mesh, x: torch.Tensor, src, dst) -> torch.Tensor:
 def dist_bconv_limbdup(mesh: Mesh, x: torch.Tensor, src, dst) -> torch.Tensor:
     """Limb duplication's BConv of x (ℓ, N), limbs split over "limb"."""
     return _bconv_limbdup(mesh, x, tuple(src), tuple(dst), True)
+
+
+# ----------------------------------------------------------------------------
+# Mapping policies for whole HE ops (bconv.mapping_scope)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MappingPolicy:
+    """How BConv's legs are laid out on the mesh (paper §IV/§V), as
+    ``cost_model.bconv_method``'s forcing: ``limb_dup="off"`` is ARK's
+    redistribution (coefficient scattering into the table product, then
+    back to (limb, coef) blocks), ``"on"`` limb duplication (the inputs
+    replicated along "limb", each cluster's outputs born on it)."""
+    name: str
+    limb_dup: str
+
+
+ARK_POLICY = MappingPolicy(name="ark-redistribution", limb_dup="off")
+LIMBDUP_POLICY = MappingPolicy(name="limb-duplication", limb_dup="on")
+
+
+def mesh_cluster_map(mesh: Mesh) -> ClusterMap:
+    """The block clustering of ``mesh``'s cores on the squarest 2-D package
+    that holds them (256 cores in 4 limb clusters: 16x16-BK-8x8), else a
+    ``lc × cs`` package of ``1 × cs`` blocks: the limb clusters and block
+    size the BConv decision and its prediction read."""
+    n, cs = mesh.lc * mesh.cs, mesh.cs
+    dx, bh = 1 << ((n.bit_length() - 1) // 2), 1 << ((cs.bit_length() - 1) // 2)
+    if dx * (n // dx) == n and bh * (cs // bh) == cs and dx % bh == 0 \
+            and (n // dx) % (cs // bh) == 0:
+        return ClusterMap(dx, n // dx, bh, cs // bh)
+    return ClusterMap(mesh.lc, mesh.cs, 1, mesh.cs)
+
+
+def mapped_bconv(mesh: Mesh, policy: MappingPolicy, x: torch.Tensor, src, dst):
+    """The policy's BConv of a global natural-order (…, ℓ, N) tensor on the
+    mesh's logical shards, back to a global natural-order tensor: ARK's two
+    all-to-alls along "limb" (:func:`_bconv_ark`) or limb duplication's one
+    all-gather (:func:`_bconv_limbdup`), as ``cost_model.bconv_method``
+    decides with the policy's ``limb_dup`` (its divisibility fallbacks
+    included: "local" runs no collective).  BConv is position-wise in the
+    coefficients, so shard j of "coef" holds coefficients [j·N/cs, …) with
+    no layout permutation.  The prediction is recorded with
+    ``kernels.config.count_collective``; the mesh tallies what it ran."""
+    src, dst = tuple(src), tuple(dst)
+    N = int(x.shape[-1])
+    cm = mesh_cluster_map(mesh)
+    method = _cost.bconv_method(cm, len(src), len(dst), N=N, limb_dup=policy.limb_dup)
+    for kind, n in _cost.predict_collectives("bconv", cm, n_in=len(src), n_out=len(dst),
+                                             N=N, limb_dup=policy.limb_dup).items():
+        _kcfg.count_collective(kind, n, shards=cm.n_cores)
+    if method == "local":
+        mesh.check_device(x)
+        return bconv_ops.bconv(x, src, dst)
+    if method == "ark":
+        return _bconv_ark(mesh, x, src, dst)
+    return _bconv_limbdup(mesh, x, src, dst, len(src) % mesh.lc == 0)
 
 
 # ----------------------------------------------------------------------------

@@ -13,7 +13,8 @@ u32 residues, so both sides compute on the same bytes:
   set and its EvalMod and BSGS settings, the transform diagonals rebuilt from
   this package's own canonical embedding;
 * :func:`lm_params_from_numpy` builds an LM of any family from the
-  reference's parameter tree.
+  reference's parameter tree (:func:`reference_path` maps a parameter's
+  name to its leaf there).
 """
 from __future__ import annotations
 
@@ -87,6 +88,18 @@ def bootcontext_from_numpy(params: CkksParams, s_small: np.ndarray,
 STACKED = ("layers", "enc_layers", "dec_layers")
 
 
+def reference_path(name: str) -> tuple[tuple[str, ...], tuple[int, ...]]:
+    """The reference's tree path of the port's parameter ``name`` and the
+    index into that leaf: ``layers.3.attn.wq`` → ``(("layers", "attn",
+    "wq"), (3,))`` for the stacks :data:`STACKED`; any other name is its own
+    path with no index (``first_layers.0.mlp.wi`` → ``(("first_layers",
+    "0", "mlp", "wi"), ())``, a list entry of the reference's tree)."""
+    parts = name.split(".")
+    if parts[0] in STACKED:
+        return (parts[0], *parts[2:]), (int(parts[1]),)
+    return tuple(parts), ()
+
+
 def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
     """The LM of ``cfg``'s family (a :class:`~repro_torch.models.transformer.
     Transformer`, or an :class:`~repro_torch.models.encdec.EncDec` for audio)
@@ -116,11 +129,7 @@ def lm_params_from_numpy(tree: dict, cfg, device="cuda"):
     used = set()
     with torch.no_grad():
         for name, w in model.named_parameters():
-            parts = name.split(".")
-            if parts[0] in STACKED:
-                path, index = (parts[0], *parts[2:]), (int(parts[1]),)
-            else:
-                path, index = tuple(parts), ()
+            path, index = reference_path(name)
             if path not in given:
                 raise KeyError(f"{name}: no {'/'.join(path)} in the tree")
             a = np.asarray(given[path])

@@ -1,5 +1,7 @@
-"""Entry points: the serving launcher (FHE and LM), the training launcher and
-the FHE mesh builder."""
+"""Entry points: the serving launcher (FHE and LM), the training launcher,
+the meshes (FHE, and the LM's over a fake world of ranks) and the dry-run
+tools (``dryrun``, ``dryrun_all``, ``dryrun_fhe`` with ``specs``, ``hlo``,
+``subproc``)."""
 
 
 def require_device(device) -> None:

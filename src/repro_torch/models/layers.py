@@ -14,9 +14,12 @@ to fp32 before the softmax, masked logits set to -1e30.  Attention is plain
 tensor algebra (``einsum`` and ``softmax``), as the reference's is plain
 ``jnp``.
 
-The reference's sharding constraints (``maybe_shard``, ``_shard_heads``)
-apply only under an abstract JAX mesh; the port runs on one device and has
-none, so they are left out (the sharded lowering is ROADMAP A.13c).
+The reference's activation constraints (:func:`maybe_shard`,
+:func:`_shard_heads`, the embedding's, the MLP's and the head's, the
+residual stream's in ``transformer``) act only under an active mesh
+(:func:`repro_torch.models.sharding.mesh_context`), on DTensor activations:
+the dry-run's lowering (:mod:`repro_torch.launch.dryrun`).  Without one, or
+on a plain tensor, they return their argument untouched.
 """
 from __future__ import annotations
 
@@ -30,10 +33,53 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from . import sharding as shd
 from .config import ModelConfig
 
 #: the masked-logit value of the reference
 MASK_VALUE = -1e30
+
+
+# ----------------------------------------------------------------------------
+# Activation constraints
+# ----------------------------------------------------------------------------
+
+# logical→physical axis translation for activation constraints.  The default
+# is 2-D FSDP+TP; launch/dryrun.py's `dp_over_model` layout remaps dp to all
+# axes and drops the TP axis (pure-FSDP training for models whose layer
+# width doesn't need tensor parallelism).
+_LOGICAL = {"dp": ("pod", "data"), "tp": "model"}
+
+
+def set_logical_axes(dp=("pod", "data"), tp="model"):
+    _LOGICAL["dp"] = tuple(dp)
+    _LOGICAL["tp"] = tp
+
+
+def maybe_shard(x, *spec):
+    """``x`` redistributed to ``spec`` (:mod:`.sharding`'s form, ``("pod",
+    "data")`` and ``"model"`` read through :func:`set_logical_axes`, axes the
+    mesh lacks dropped) when a mesh is active and ``x`` is a DTensor on it;
+    ``x`` untouched otherwise."""
+    mesh = shd.active_mesh()
+    if mesh is None or getattr(x, "device_mesh", None) is not mesh:
+        return x
+    if len(spec) > x.dim():
+        raise ValueError(f"spec {spec} for a tensor of rank {x.dim()}")
+    names = set(mesh.mesh_dim_names)
+    cleaned = []
+    for s in spec:
+        if s == ("pod", "data"):
+            s = _LOGICAL["dp"]
+        elif s == "model":
+            s = _LOGICAL["tp"]
+        if isinstance(s, tuple):
+            s = tuple(a for a in s if a in names) or None
+        elif s is not None and s not in names:
+            s = None
+        cleaned.append(s)
+    want = shd.placements(mesh, tuple(cleaned))
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -147,11 +193,17 @@ def _expand_kv(k, H: int):
     return torch.repeat_interleave(k, H // KV, dim=2)
 
 
+def _shard_heads(x):
+    """(B, S, H, hd): batch over dp axes, heads over the model axis."""
+    return maybe_shard(x, ("pod", "data"), None, "model", None)
+
+
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
     """q: (B,S,H,hd), k/v: (B,T,KV,hd) → (B,S,H,hd); mask (S,T) or None."""
     B, S, H, hd = q.shape
-    k = _expand_kv(k, H)
-    v = _expand_kv(v, H)
+    k = _shard_heads(_expand_kv(k, H))
+    v = _shard_heads(_expand_kv(v, H))
+    q = _shard_heads(q)
     logits = torch.einsum("bshd,bthd->bhst", q, k).float()
     logits = logits / math.sqrt(hd)
     if mask is not None:
@@ -167,8 +219,9 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, q_offset: int,
     into the mask."""
     B, S, H, hd = q.shape
     T = k.shape[1]
-    k = _expand_kv(k, H)
-    v = _expand_kv(v, H)
+    q = _shard_heads(q)
+    k = _shard_heads(_expand_kv(k, H))
+    v = _shard_heads(_expand_kv(v, H))
     nchunks = -(-T // chunk)
     pad = nchunks * chunk - T
     kc = F.pad(k, (0, 0, 0, 0, 0, pad)).reshape(B, nchunks, chunk, H, hd)
@@ -271,6 +324,7 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, x):
     h = F.silu(x @ p.wg) * (x @ p.wi)
+    h = maybe_shard(h, ("pod", "data"), None, "model")   # F over TP axis
     return h @ p.wo
 
 
@@ -285,7 +339,7 @@ class Embedding(nn.Module):
 
 
 def embed(p: Embedding, tokens):
-    return F.embedding(tokens.long(), p.table)
+    return maybe_shard(F.embedding(tokens.long(), p.table), ("pod", "data"), None, None)
 
 
 class Head(nn.Module):
@@ -295,7 +349,8 @@ class Head(nn.Module):
 
 
 def lm_head(p: Head, x):
-    return x @ p.w
+    # vocab stays model-sharded through the loss (batch over pod/data)
+    return maybe_shard(x @ p.w, ("pod", "data"), None, "model")
 
 
 # ----------------------------------------------------------------------------

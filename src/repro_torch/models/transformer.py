@@ -161,7 +161,10 @@ def _runs_shared(cfg: ModelConfig, idx: int) -> bool:
 
 def _superblock(cfg: ModelConfig, shared, lp, x, positions, idx: int):
     """One layer of the stack, the unit of activation checkpointing.
-    Returns (x, aux)."""
+    Returns (x, aux).  Under an active mesh the residual stream enters it
+    d_model-sharded over the TP axis (sequence-parallel style), as the
+    reference's scanned layer body."""
+    x = L.maybe_shard(x, ("pod", "data"), None, "model")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "moe"):
         x, aux = _attn_mlp_block(lp, cfg, x, positions)

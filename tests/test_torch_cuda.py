@@ -1029,3 +1029,23 @@ def test_lm_reduced_on_card_equals_cpu(dev, arch):
     got = LC.card_vs_cpu(registry.get_config(arch).reduced(), dev, train_steps=1)
     assert all(got["ok"].values()), got
     assert config.kernel_launch_counts() == {}
+
+
+@pytest.mark.parametrize("policy", ["ark", "limbdup"])
+def test_mapping_policy_on_card_equals_cpu(dev, policy):
+    """``key_switch`` under ``mapping_scope`` at ``test_medium`` (ℓ = 8 on
+    2 × 2 logical shards) on the card and on the CPU: the same bytes, equal
+    to the plain single-device key-switch's, the predicted collectives
+    executed, their bytes those of ``nop_traffic``; the BConvs launch
+    BConvU on the card."""
+    from repro_torch.launch import dryrun_fhe as F
+    p = prm.test_medium()
+    got = {d: F.run_cell("pod", policy, p.L, limb_clusters=2, device=d, params=p,
+                         n_cores=4, warm_reps=0) for d in ("cpu", "cuda")}
+    for rec in got.values():
+        assert rec["ok"], rec.get("error")
+        assert rec["equal_to_single_device"] and rec["collectives_match"]
+        assert rec["bytes_match"]
+    assert got["cpu"]["digests"] == got["cuda"]["digests"]
+    assert got["cpu"]["executed"] == got["cuda"]["executed"]
+    assert got["cuda"]["launches"].get("bconvu") == 5
